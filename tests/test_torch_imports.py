@@ -1,0 +1,118 @@
+"""The port stands alone: importing it (and chip_smoke.py) pulls in neither
+`jax` nor the JAX package, and its default-device entry points raise on a
+machine without a CUDA card instead of running on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+_IMPORT_PROBE = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    # start clean even if the interpreter's start-up imported jax
+    for name in list(sys.modules):
+        if name.split(".")[0] in ("jax", "jaxlib", "zkevm_harness_tpu"):
+            del sys.modules[name]
+    import zkevm_harness_tpu_torch as pkg
+    names = ["zkevm_harness_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    bad = sorted(n for n in sys.modules
+                 if n.split(".")[0] in ("jax", "jaxlib", "zkevm_harness_tpu"))
+    assert not bad, bad
+    print("MODULES", " ".join(names))
+""")
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax():
+    res = _run(_IMPORT_PROBE)
+    assert res.returncode == 0, res.stderr[-2000:]
+    names = res.stdout.split("MODULES", 1)[1].split()
+    for expected in ("ops.goldilocks", "ops.cuda_kernels", "ops.poseidon2",
+                     "ops.poseidon2_params", "ops.ntt", "ops.merkle",
+                     "prover.transcript", "prover.fri", "prover.stark",
+                     "prover.guard", "prover.plonkish", "circuits.flagship",
+                     "utils.field_int", "utils.tracing", "utils.serde",
+                     "convert"):
+        assert "zkevm_harness_tpu_torch." + expected in names
+
+
+def test_no_source_line_imports_jax():
+    pkg = os.path.join(REPO, "zkevm_harness_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, fnames in os.walk(pkg):
+        files += [os.path.join(root, f) for f in fnames if f.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        with open(path) as f:
+            for line in f:
+                stripped = line.strip()
+                if stripped.startswith(("import ", "from ")):
+                    head = stripped.split()[1].split(".")[0]
+                    assert head not in ("jax", "jaxlib", "zkevm_harness_tpu"), \
+                        (path, stripped)
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from zkevm_harness_tpu_torch.circuits import flagship as fl
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.prover.transcript import Transcript
+
+    cfg = pk.PlonkishConfig(rate=2, cap_size=4, num_queries=8,
+                            final_fri_size=8)
+    ir = fl.flagship_ir(log_n=6, width=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fl.flagship_witness(ir, seed=42)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fl.flagship_setup(ir, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Transcript()
+    setup = fl.flagship_setup(ir, cfg, device="cpu")
+    witness = fl.flagship_witness(ir, seed=42, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pk.prove(ir, setup, witness, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pk.verify(ir, setup.vk(), None, cfg)
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_wrappers_refuse_a_wrong_device_or_type():
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    a = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        ck.gl_mul(a, a.to(torch.int32))
+    with pytest.raises(TypeError):
+        ck.gl_pow7(a.to(torch.float32))
+    meta = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        ck.gl_mul(meta, meta)
+    with pytest.raises(ValueError):
+        ck.poseidon2_permute(torch.zeros((2, 12), dtype=torch.int64,
+                                         device="meta"))
+    with pytest.raises(ValueError):
+        ck.gl_add(a, meta)
