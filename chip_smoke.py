@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py            # full run: flagship 130 x 2^19, then
-                                     # one MainVM instance 764 x 2^16
+    python3 chip_smoke.py            # full run: flagship 130 x 2^19, one
+                                     # MainVM instance 764 x 2^16, then the
+                                     # block's RAM permutation, sorters and
+                                     # log demuxer at production geometry
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -27,7 +29,18 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                trace, artifacts, witness, setup, prove twice, verify, public
                inputs as expected, three tampered proofs rejected; launch
                counters of this phase alone
-  9. kernels   one line {"kernels": [...], "helpers": [...]}
+  9. sorters_golden  the first instance of each memory and log circuit of
+               the golden block (RAM permutation, events sorter, storage
+               sorter, log demuxer) proved on the card equals
+               test_artifacts/{ram,events,storage,demux}_log8_{vk,proof}.json
+ 10. sorters   the 5585-cycle block's memory and log subsystem at production
+               geometry (GeometryConfig() capacities, 50 queries): the
+               production VKs of types 8, 11, 12, 9 and 4 equal
+               setup/setup/base_layer/vk_N.json; the block's one instance of
+               each of types 8, 11, 9 and 4 is decomposed, proved twice,
+               verified, its public inputs checked, and a tampered public
+               input and OOD value rejected; launch counters of this phase
+  11. kernels  one line {"kernels": [...], "helpers": [...]}
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises and
 the run exits non-zero.
@@ -48,6 +61,8 @@ WIDTH = 130  # the flagship's MainVM-shaped trace width; never cut
 MAIN_VM_CYCLES = 5585  # cycles per MainVM instance (cycles_per_vm_snapshot)
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "test_artifacts")
+PROD_VK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "setup", "setup", "base_layer")
 
 # Published peaks of one H100 SXM used for the bounds: 3.35 TB/s of device
 # memory, and 67 TFLOP/s of float32, which is 132 SMs x 128 lanes x 2 (a
@@ -128,9 +143,9 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's per-kernel register and spill report")
     ap.add_argument("--profile", action="store_true",
-                    help="prove each main path once more under torch.profiler "
-                         "and print the device's busy share and the top "
-                         "kernels")
+                    help="prove each main path (and each memory and log "
+                         "circuit) once more under torch.profiler and print "
+                         "the device's busy share and the top kernels")
     ap.add_argument("--compare-broadcast", action="store_true",
                     help="prove again with the elementwise kernels' broadcast "
                          "operands materialised in PyTorch (all of them, and "
@@ -153,8 +168,15 @@ def main(argv=None) -> int:
         return 1
 
     from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import events_sorter_circuit as ecirc
     from zkevm_harness_tpu_torch.circuits import flagship as fl
+    from zkevm_harness_tpu_torch.circuits import log_demux_circuit as dcirc
     from zkevm_harness_tpu_torch.circuits import main_vm_circuit as mvc
+    from zkevm_harness_tpu_torch.circuits import \
+        ram_permutation_circuit as rcirc
+    from zkevm_harness_tpu_torch.circuits import \
+        storage_sorter_circuit as sscirc
+    from zkevm_harness_tpu_torch.circuits.types import GeometryConfig
     from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
     from zkevm_harness_tpu_torch.ops import goldilocks as gl
     from zkevm_harness_tpu_torch.prover import layers as ly
@@ -162,6 +184,13 @@ def main(argv=None) -> int:
     from zkevm_harness_tpu_torch.utils import serde, tracing
     from zkevm_harness_tpu_torch.vm import isa
     from zkevm_harness_tpu_torch.witness import main_vm as wmv
+    from zkevm_harness_tpu_torch.witness import oracle
+    from zkevm_harness_tpu_torch.witness.log_demux import \
+        compute_log_demux_artifacts
+    from zkevm_harness_tpu_torch.witness.ram_permutation import \
+        compute_ram_circuit_snapshots
+    from zkevm_harness_tpu_torch.witness.sorters import (
+        compute_events_circuit_artifacts, compute_storage_circuit_artifacts)
 
     t_start = time.time()
     records = []
@@ -342,8 +371,38 @@ def main(argv=None) -> int:
         "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(one), 1, 2),
         "bytes": 2 * 8 * 12,
         "ops": P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD}
+    # the memory and log path's shapes: a block of 1024 witness columns of a
+    # 2^16-row coset (the demuxer's copy terms) for the elementwise
+    # kernels, the 2^19 leaves of the RAM permutation's rate-2 commitment
+    # for the permutation
+    timing_srt = {}
+    srt_shape = (1024, 1 << 16)
+    ta, tb = rand_field(srt_shape), rand_field(srt_shape)
+    for name, (kern, plain) in binary.items():
+        errs[name] = max(errs[name], check_equal(
+            name + " sorters shape", kern(ta, tb), plain(ta, tb)))
+        timing_srt[name] = {
+            "shape": list(srt_shape),
+            "ms": cuda_ms(lambda: kern(ta, tb), 2, 10),
+            "plain_ms": cuda_ms(lambda: plain(ta, tb), 1, 3),
+            "bytes": 3 * 8 * ta.numel(),
+            "ops": ta.numel() * (OPS_MUL if name == "gl_mul" else OPS_ADD)}
+    del ta, tb
+    srt_states = 1 << 19
+    ts = rand_field((srt_states, 12))
+    errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
+        "poseidon2 sorters shape", ck.poseidon2_permute(ts),
+        ck.poseidon2_permute_plain(ts)))
+    timing_srt["poseidon2_permute"] = {
+        "shape": [srt_states, 12],
+        "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), 2, 10),
+        "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+        "bytes": 2 * 8 * 12 * srt_states,
+        "ops": srt_states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
+    del ts
     torch.cuda.empty_cache()
-    for t in list(timing.values()) + list(timing_mv.values()):
+    for t in (list(timing.values()) + list(timing_mv.values())
+              + list(timing_srt.values())):
         by = t["bytes"] / PEAK_BYTES_PER_S * 1e3
         op = t["ops"] / PEAK_INT_ALU_PER_S * 1e3
         t["bound_ms"] = max(by, op)
@@ -356,7 +415,8 @@ def main(argv=None) -> int:
     phase("kernels_vs_plain", tolerance=0, max_abs_err=errs,
           shapes={"elementwise": [WIDTH, n_rows],
                   "poseidon2_permute": [n_states, 12]},
-          timing=rounded(timing), timing_main_vm=rounded(timing_mv))
+          timing=rounded(timing), timing_main_vm=rounded(timing_mv),
+          timing_sorters=rounded(timing_srt))
 
     # -- 4. golden path on the card ------------------------------------------
     gcfg = pk.PlonkishConfig(rate=2, cap_size=4, num_queries=8,
@@ -650,6 +710,228 @@ def main(argv=None) -> int:
             raise SystemExit("profile: the trace shows no device time")
         return wall_s, rows
 
+    # -- 9. the golden block's memory and log circuits on the card ------------
+    # the 200-cycle golden block: its first instance of each circuit at the
+    # capacities of golden.SORTER_CAPACITY, through the typed layer functions
+    t0 = time.time()
+    gtracer = golden.trace_main_vm_block()
+    cap = golden.SORTER_CAPACITY
+
+    def block_streams(tr):
+        demuxed = oracle.demux_log_queue(tr.final_log_queue())
+        return {"memory": [q for _, q in tr.memory_queries],
+                "log": [q for _, q in tr.final_log_queue()],
+                "events": [q for _, q in demuxed["events"]],
+                "storage": [q for _, q in demuxed["storage"]]}
+
+    def sorter_circuits(streams, caps):
+        """(name, circuit type, setup, decompose, prove, verify, expected
+        public inputs) of the four circuits: setup() gives (setup data,
+        geometry), decompose() (instances, challenges)."""
+        def ram_art():
+            a = compute_ram_circuit_snapshots(streams["memory"], caps["ram"],
+                                              device=dev)
+            return a.instances, a.challenges
+
+        def events_art():
+            a = compute_events_circuit_artifacts(
+                streams["events"], caps["events"], circuit_type=11,
+                device=dev)
+            return a.instances, a.challenges
+
+        def storage_art():
+            a = compute_storage_circuit_artifacts(
+                streams["storage"], caps["storage"], device=dev)
+            return a.instances, a.challenges
+
+        def demux_art():
+            a = compute_log_demux_artifacts(streams["log"], caps["demux"],
+                                            device=dev)
+            return a.instances, None
+
+        return [
+            ("ram", 8, lambda: ly.ram_setup_data(caps["ram"], device=dev),
+             ram_art,
+             lambda i, c: ly.prove_ram_instance(i, c, caps["ram"],
+                                                device=dev),
+             lambda i, c, p: ly.verify_ram_instance(i, c, caps["ram"], p,
+                                                    device=dev),
+             rcirc.instance_public_inputs),
+            ("events", 11,
+             lambda: ly.events_setup_data(caps["events"], device=dev),
+             events_art,
+             lambda i, c: ly.prove_events_instance(i, c, caps["events"],
+                                                   device=dev),
+             lambda i, c, p: ly.verify_events_instance(
+                 i, c, caps["events"], p, device=dev),
+             ecirc.instance_public_inputs),
+            ("storage", 9,
+             lambda: ly.storage_setup_data(caps["storage"], device=dev),
+             storage_art,
+             lambda i, c: ly.prove_storage_instance(i, c, caps["storage"],
+                                                    device=dev),
+             lambda i, c, p: ly.verify_storage_instance(
+                 i, c, caps["storage"], p, device=dev),
+             sscirc.instance_public_inputs),
+            ("demux", 4,
+             lambda: ly.demux_setup_data(caps["demux"], device=dev),
+             demux_art,
+             lambda i, c: ly.prove_demux_instance(i, caps["demux"],
+                                                  device=dev),
+             lambda i, c, p: ly.verify_demux_instance(i, caps["demux"], p,
+                                                      device=dev),
+             lambda geo, i, c: dcirc.instance_public_inputs(geo, i))]
+
+    golden_s = {}
+    with ly.engine_override(scfg):
+        for name, _ct, setup_of, decompose, prove_one, verify_one, _pi in \
+                sorter_circuits(block_streams(gtracer), cap):
+            t1 = time.time()
+            insts, chals = decompose()
+            gp = prove_one(insts[0], chals)
+            with open(os.path.join(GOLDEN_DIR, f"{name}_log8_vk.json")) as f:
+                if setup_of()[0].vk != [int(v) for v in json.load(f)]:
+                    raise SystemExit(f"sorters_golden: {name} verification "
+                                     "key differs")
+            with open(os.path.join(GOLDEN_DIR,
+                                   f"{name}_log8_proof.json")) as f:
+                if json.loads(json.dumps(serde.proof_to_json(gp))) != \
+                        json.load(f):
+                    raise SystemExit(f"sorters_golden: {name} proof differs "
+                                     "from the golden JSON")
+            if not verify_one(insts[0], chals, gp):
+                raise SystemExit(f"sorters_golden: {name} proof does not "
+                                 "verify")
+            torch.cuda.synchronize()
+            golden_s[name] = round(time.time() - t1, 3)
+    ly._SETUP_CACHE.clear()
+    phase("sorters_golden", capacities=cap, vk_equal=True, proof_equal=True,
+          verify=True, seconds=golden_s,
+          total_s=round(time.time() - t0, 3))
+
+    # -- 10. the block's memory and log subsystem at production geometry -----
+    geo_cfg = GeometryConfig()
+    prod_caps = {"ram": geo_cfg.cycles_per_ram_permutation,
+                 "events": geo_cfg.cycles_per_events_or_l1_messages_sorter,
+                 "storage": geo_cfg.cycles_per_storage_sorter,
+                 "demux": geo_cfg.cycles_per_log_demuxer}
+    streams = block_streams(tracer)  # the 5585-cycle block of phase 8
+    per_type = {}
+    tracing.GLOBAL.enabled = True
+    ck.reset_launches()
+    t_path = time.time()
+    with ly.engine_override(mv_cfg):
+        for name, ctype, setup_of, decompose, prove_one, verify_one, \
+                pis_of in sorter_circuits(streams, prod_caps):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(ck.LAUNCHES)
+            (insts, chals), art_s = timed(decompose)
+            if len(insts) != 1:
+                raise SystemExit(f"sorters: {name}: expected one instance, "
+                                 f"got {len(insts)}")
+            inst = insts[0]
+            (sd, geo), setup_s = timed(setup_of)
+            vks = {ctype: sd.vk}
+            if ctype == 11:  # the L1-messages sorter shares the gate set
+                vks[12] = ly.events_setup_data(prod_caps["events"],
+                                               circuit_type=12,
+                                               device=dev)[0].vk
+            for t, vk in vks.items():
+                with open(os.path.join(PROD_VK_DIR, f"vk_{t}.json")) as f:
+                    if vk != [int(v) for v in json.load(f)]:
+                        raise SystemExit(f"sorters: the production VK of "
+                                         f"type {t} differs from "
+                                         f"setup/setup/base_layer/vk_{t}.json")
+            tracing.GLOBAL.spans.clear()
+            before_prove = dict(ck.LAUNCHES)
+            proof, prove_s = timed(lambda: prove_one(inst, chals))
+            one_prove = {k: ck.LAUNCHES[k] - before_prove[k]
+                         for k in ck.LAUNCHES}
+            spans = tracing.GLOBAL.flat_durations()
+            fill_s = spans.get("layers.witness", 0.0)
+            stages = prove_stages(spans)
+            ok, verify_s = timed(lambda: verify_one(inst, chals, proof))
+            if not ok:
+                raise SystemExit(f"sorters: {name} proof does not verify")
+            again, warm_s = timed(lambda: prove_one(inst, chals))
+            if serde.proof_to_json(again) != serde.proof_to_json(proof):
+                raise SystemExit(f"sorters: {name}: a second prove gave a "
+                                 "different proof")
+            del again
+            profiled = {}
+            if args.profile:  # the device's busy share of one more prove,
+                # whose launches are taken back out of the path's counts
+                counted = dict(ck.LAUNCHES)
+                _, rows = device_rows(lambda: prove_one(inst, chals),
+                                      host_too=False)
+                ck.LAUNCHES.update(counted)
+                busy_s = sum(r[2] for r in rows) / 1e6
+                profiled = {"device_busy_s": round(busy_s, 3),
+                            "device_idle_share": round(1 - busy_s / warm_s,
+                                                       3)}
+            expected = [int(v) % P for v in pis_of(geo, inst, chals)]
+            if [int(v) for v in proof.public_inputs] != expected:
+                raise SystemExit(f"sorters: {name}: public inputs are not "
+                                 "the expected ones")
+            assert len(proof.ood_witness) == sd.ir.num_witness
+            assert all(0 <= v < P for pair in proof.ood_witness
+                       for v in pair)
+            assert proof.witness_cap.shape == (mv_cfg.cap_size, 4)
+
+            def tampered(mutate):
+                bad = copy.deepcopy(proof)
+                mutate(bad)
+                return bad
+
+            # a public input: refused by the typed entry point (against the
+            # instance's) and by the verifier alone; an OOD value: by the
+            # typed entry point, which then runs the verifier
+            bad_pi = tampered(bump_pi)
+            tamper = {"public_input": not verify_one(inst, chals, bad_pi)
+                      and not pk.verify(sd.ir, sd.vk, bad_pi, sd.config,
+                                        device=dev),
+                      "ood_witness": not verify_one(inst, chals,
+                                                    tampered(bump_ood))}
+            if not all(tamper.values()):
+                raise SystemExit(f"sorters: {name}: a tampered proof was "
+                                 f"accepted: {tamper}")
+            per_type[name] = {
+                "circuit_type": ctype, "log_n": sd.ir.log_n,
+                "width": sd.ir.num_witness, "const_cols": sd.ir.num_const,
+                "gate_constraints": sd.ir.num_gate_constraints,
+                "lookup_sets": len(sd.ir.lookup_sets),
+                "public_inputs": len(expected),
+                "items": int(getattr(inst, "num_items", 0)),
+                "vk_equal": sorted(vks), "artifacts_s": round(art_s, 3),
+                "setup_s": round(setup_s, 3),
+                "witness_fill_s": round(fill_s, 3),
+                "prove_s": round(prove_s, 3),
+                "prove_warm_s": round(warm_s, 3),
+                "verify_s": round(verify_s, 3), "verify": True,
+                "public_inputs_as_expected": True,
+                "second_proof_equal": True, "tampered_rejected": tamper,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": {k: ck.LAUNCHES[k] - before[k]
+                             for k in ck.LAUNCHES},
+                "launches_one_prove": one_prove,
+                "stages_s": stages, **profiled}
+            del proof, sd, geo
+            ly._SETUP_CACHE.clear()
+    launches_srt = dict(ck.LAUNCHES)
+    path_s = time.time() - t_path
+    tracing.GLOBAL.enabled = False
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches_srt[name] <= 0:
+            raise SystemExit(f"sorters path launched {name} no time")
+    torch.cuda.empty_cache()
+    phase("sorters", capacities=prod_caps,
+          config={"rate": mv_cfg.rate, "cap_size": mv_cfg.cap_size,
+                  "num_queries": mv_cfg.num_queries,
+                  "final_fri_size": mv_cfg.final_fri_size},
+          streams={k: len(v) for k, v in streams.items()},
+          path_s=round(path_s, 3), launches=launches_srt, types=per_type)
+
     # -- optional: device busy share of one more prove -----------------------
     if args.profile:
         witness = fl.flagship_witness(ir, seed=0, device=dev)
@@ -745,21 +1027,24 @@ def main(argv=None) -> int:
 
     # -- 6. the kernels line --------------------------------------------------
     def entry(name, source, replaces):
-        # launches: both main paths together, each counted from 0 and read
-        # just after its run; ms and the bound at the flagship's shape, the
-        # MainVM path's beside them
+        # launches: the three main paths together, each counted from 0 and
+        # read just after its run; ms and the bound at the flagship's shape,
+        # the MainVM and sorters paths' beside them
         t = timing[name]
+        by_path = {"flagship": launches[name], "main_vm": launches_mv[name],
+                   "sorters": launches_srt[name]}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": launches[name] + launches_mv[name],
-               "launches_by_path": {"flagship": launches[name],
-                                    "main_vm": launches_mv[name]},
+               "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
                "max_abs_err": errs[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": None}
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by")
         if name in timing_mv:
             out["main_vm"] = {k: timing_mv[name][k] for k in keys}
+        if name in timing_srt:
+            out["sorters"] = {k: timing_srt[name][k] for k in keys}
         if name + "_one_state" in timing_mv:
             out["one_state"] = {k: timing_mv[name + "_one_state"][k]
                                 for k in keys}

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,7 +52,16 @@ def test_every_module_imports_without_jax():
                      "utils.keccak", "utils.native", "utils.secp256k1",
                      "witness.tracer", "witness.decommitter",
                      "witness.main_vm", "circuits.types",
-                     "circuits.main_vm_circuit", "prover.layers"):
+                     "circuits.main_vm_circuit", "prover.layers",
+                     "witness.encodings", "witness.storage_sort",
+                     "witness.log_demux", "witness.queues", "witness.oracle",
+                     "witness.ram_permutation", "witness.sorters",
+                     "circuits.poseidon2_circuit",
+                     "circuits.ram_permutation_circuit",
+                     "circuits.narrow_region",
+                     "circuits.events_sorter_circuit",
+                     "circuits.storage_sorter_circuit",
+                     "circuits.log_demux_circuit"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 
@@ -119,6 +129,56 @@ def test_main_vm_entry_points_raise_without_cuda():
                  lambda: ly.main_vm_setup_data(8),
                  lambda: ly.prove_main_vm_instance(inst, 8),
                  lambda: ly.verify_main_vm_instance(inst, 8, None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_memory_and_log_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import events_sorter_circuit as ec
+    from zkevm_harness_tpu_torch.circuits import log_demux_circuit as dc
+    from zkevm_harness_tpu_torch.circuits import narrow_region as nrr
+    from zkevm_harness_tpu_torch.circuits import ram_permutation_circuit as rc
+    from zkevm_harness_tpu_torch.circuits import storage_sorter_circuit as sc
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.witness import log_demux, oracle, queues
+    from zkevm_harness_tpu_torch.witness import ram_permutation as wram
+    from zkevm_harness_tpu_torch.witness import sorters
+
+    tracer = golden.trace_main_vm_block()
+    mem = [q for _, q in tracer.memory_queries]
+    log = [q for _, q in tracer.final_log_queue()]
+    events = [q for _, q in
+              oracle.demux_log_queue(tracer.final_log_queue())["events"]]
+    cfg = pk.PlonkishConfig(**golden.MAIN_VM_CONFIG)
+    rgeo, egeo = rc.RamGeometry(8, 1), ec.EventsGeometry(8, 2)
+    sgeo, dgeo = sc.StorageGeometry(8, 11), dc.DemuxGeometry(8, 3)
+    art = wram.compute_ram_circuit_snapshots(mem, 8, device="cpu")
+    rinst = rc.instance_inputs(art.instances[0], art.challenges)
+    for call in (lambda: queues.QueueSimulator(),
+                 lambda: queues.FullWidthQueueSimulator(),
+                 lambda: wram.compute_ram_circuit_snapshots(mem, 8),
+                 lambda: sorters.compute_events_circuit_artifacts(events, 3),
+                 lambda: sorters.compute_storage_circuit_artifacts([], 4),
+                 lambda: log_demux.compute_log_demux_artifacts(log, 6),
+                 lambda: rc.ram_setup(rc.ram_ir(8, 1), rgeo, cfg),
+                 lambda: rc.ram_witness(rc.ram_ir(8, 1), rgeo, rinst),
+                 lambda: ec.events_setup(ec.events_ir(8, 2), egeo, cfg),
+                 lambda: sc.storage_setup(sc.storage_ir(8, 11), sgeo, cfg),
+                 lambda: dc.demux_setup(dc.demux_ir(8, 3), dgeo, cfg),
+                 lambda: nrr.narrow_region_witness(
+                     egeo.region, np.zeros((1, 20), np.uint64), [1],
+                     (0, 0, 0, 0), rc.block_const_rows_u64()),
+                 lambda: ly.ram_setup_data(8), lambda: ly.events_setup_data(3),
+                 lambda: ly.storage_setup_data(21),
+                 lambda: ly.demux_setup_data(6),
+                 lambda: ly.prove_ram_instance(art.instances[0],
+                                               art.challenges, 8),
+                 lambda: ly.verify_ram_instance(art.instances[0],
+                                                art.challenges, 8, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

@@ -199,7 +199,7 @@ def test_a_second_circuit_without_lookups_proves_and_verifies():
     cfg = tpk.PlonkishConfig(rate=2, cap_size=2, num_queries=4,
                              final_fri_size=4)
     setup = tpk.build_setup(ir, np.ones((1, n), dtype=object),
-                            tpk.identity_permutation(3, n), cfg, device="cpu")
+                            tpk.CopyWiring.identity(), cfg, device="cpu")
     proof = tpk.prove(ir, setup, tgl.from_u64(cols, "cpu"), cfg, device="cpu")
     assert proof.ood_stage3 == [] and proof.stage3_cap.shape == (0, 4)
     assert tpk.verify(ir, setup.vk(), proof, cfg, device="cpu", strict=True)

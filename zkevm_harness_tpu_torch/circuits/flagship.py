@@ -75,9 +75,10 @@ def flagship_setup(ir: pk.PlonkishIR, cfg: pk.PlonkishConfig,
     width = ir.num_witness
     const_cols = np.ones((1, n), dtype=object)
     # wire col (width-2) to col 3 on every row
-    cycles = [[(3, i), (width - 2, i)] for i in range(n)]
-    perm = pk.apply_copy_cycles(pk.identity_permutation(width, n), cycles)
-    return pk.build_setup(ir, const_cols, perm, cfg, device=device)
+    rows = np.arange(n)
+    wiring = pk.wire_copy_pairs(n, np.stack([np.full(n, 3), rows], 1),
+                                np.stack([np.full(n, width - 2), rows], 1))
+    return pk.build_setup(ir, const_cols, wiring, cfg, device=device)
 
 
 def flagship_witness(ir: pk.PlonkishIR, seed: int = 0,

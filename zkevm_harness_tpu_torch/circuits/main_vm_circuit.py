@@ -998,8 +998,8 @@ def main_vm_setup(ir: pk.PlonkishIR, geo: VmGeometry,
                   cfg: pk.PlonkishConfig, device=None) -> pk.PlonkishSetup:
     """`device=None` means the CUDA card (raises where there is none)."""
     const = _const_rows(geo).T
-    perm = pk.identity_permutation(ir.num_witness, geo.n)
-    return pk.build_setup(ir, const, perm, cfg, device=device)
+    return pk.build_setup(ir, const, pk.CopyWiring.identity(), cfg,
+                          device=device)
 
 
 # ---------------------------------------------------------------------------

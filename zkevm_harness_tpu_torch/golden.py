@@ -1,10 +1,13 @@
-"""The fixed small MainVM instance behind the committed golden artifacts
-`test_artifacts/main_vm_log8_vk.json` and `main_vm_log8_proof.json`.
+"""The fixed small block behind the committed golden artifacts.
 
-`tools/gen_main_vm_golden.py` proves this block with the JAX package and
-writes the two files; the port is held against them on the CPU (tests) and
-on the card (`chip_smoke.py`). The block is given as a function of an `isa`
-module, so that either package builds it from its own instruction classes.
+`test_artifacts/main_vm_log8_{vk,proof}.json` hold its MainVM instance
+(`tools/gen_main_vm_golden.py`), and
+`test_artifacts/{ram,events,storage,demux}_log8_{vk,proof}.json` the first
+instance of each of its memory and log circuits (`tools/gen_sorter_golden.py`),
+all proved with the JAX package. The port is held against them on the CPU
+(tests) and on the card (`chip_smoke.py`). The block is given as a function
+of an `isa` module, so that either package builds it from its own
+instruction classes.
 """
 
 from __future__ import annotations
@@ -24,6 +27,13 @@ MAIN_VM_GEOMETRY = dict(log_n=8, limb_bits=8, num_limbs=16)
 # PlonkishConfig of the golden proof
 MAIN_VM_CONFIG = dict(rate=2, cap_size=4, num_queries=4, final_fri_size=8)
 MAIN_VM_CYCLES = 200  # cycles of the block = capacity of its one instance
+# Capacities per instance of the memory and log circuits of the golden
+# artifacts. Each `*_geometry_for_capacity` of `prover/layers.py` turns them
+# into the geometries of the JAX package's own tests: RamGeometry(8, 1),
+# EventsGeometry(8, 2), DemuxGeometry(8, 3); and StorageGeometry(8, 11), the
+# smallest that holds the block's one storage cell of 21 queries (an instance
+# never splits a cell).
+SORTER_CAPACITY = dict(ram=8, events=3, storage=21, demux=6)
 
 
 def loop_body(isa) -> List:

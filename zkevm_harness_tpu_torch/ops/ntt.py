@@ -35,13 +35,37 @@ def bit_reverse_indices(n: int, device) -> torch.Tensor:
     return _REV_CACHE[key]
 
 
+# Rows of one transform pass: a pass holds a few copies of its block, so
+# wide traces (the log demuxer's 9,894 columns) go through in blocks of at
+# most this many elements (2 GiB of int64)
+_BLOCK_ELEMS = 1 << 28
+
+
+def _row_blocks(rows: int, n: int):
+    step = max(1, _BLOCK_ELEMS // n)
+    return [(r, min(rows, r + step)) for r in range(0, rows, step)]
+
+
 def _ntt_core(values: GF, log_n: int, inverse: bool) -> GF:
-    """Iterative radix-2 DIT over the last axis, natural order in and out."""
+    """Iterative radix-2 DIT over the last axis, natural order in and out,
+    in blocks of rows (`_BLOCK_ELEMS`)."""
     n = 1 << log_n
     if log_n == 0:
         return values.clone()
     shape = values.shape
     x = values.reshape(-1, n)
+    blocks = _row_blocks(x.shape[0], n)
+    if len(blocks) == 1:
+        return _ntt_rows(x, log_n, inverse).reshape(shape)
+    out = torch.empty_like(x)
+    for r0, r1 in blocks:
+        out[r0:r1] = _ntt_rows(x[r0:r1], log_n, inverse)
+    return out.reshape(shape)
+
+
+def _ntt_rows(x: GF, log_n: int, inverse: bool) -> GF:
+    """`_ntt_core` on one (rows, n) block."""
+    n = 1 << log_n
     rows = x.shape[0]
     x = torch.index_select(x, 1, bit_reverse_indices(n, x.device))
     w = gl.primitive_root_of_unity(log_n)
@@ -59,7 +83,7 @@ def _ntt_core(values: GF, log_n: int, inverse: bool) -> GF:
         t = odd.contiguous() if s == 0 else gl.mul(odd, table[::groups])
         x = torch.stack([gl.add(even, t), gl.sub(even, t)],
                         dim=2).reshape(rows, n)
-    return x.reshape(shape)
+    return x
 
 
 def ntt(values: GF) -> GF:
@@ -99,11 +123,18 @@ def scale_by_powers(values: GF, base: int) -> GF:
 def lde_from_coeffs(coeffs: GF, big_n: int,
                     shift: int = gl.MULTIPLICATIVE_GENERATOR) -> GF:
     """Evaluations of (..., n) coefficient rows on the coset shift * K of the
-    size-big_n subgroup K, natural order."""
+    size-big_n subgroup K, natural order (in blocks of rows, as `_ntt_core`,
+    so that the padded and scaled copies exist for one block at a time)."""
     n = coeffs.shape[-1]
-    pad = torch.zeros(coeffs.shape[:-1] + (big_n - n,), dtype=torch.int64,
+    x = coeffs.reshape(-1, n)
+    out = torch.empty((x.shape[0], big_n), dtype=torch.int64,
                       device=coeffs.device)
-    return ntt(scale_by_powers(torch.cat([coeffs, pad], dim=-1), shift))
+    for r0, r1 in _row_blocks(x.shape[0], big_n):
+        pad = torch.zeros((r1 - r0, big_n - n), dtype=torch.int64,
+                          device=coeffs.device)
+        out[r0:r1] = ntt(scale_by_powers(torch.cat([x[r0:r1], pad], dim=-1),
+                                         shift))
+    return out.reshape(coeffs.shape[:-1] + (big_n,))
 
 
 def coset_lde(evals: GF, lde_factor: int,

@@ -49,6 +49,13 @@ from .transcript import Transcript
 
 K_COSET_GEN = gl.MULTIPLICATIVE_GENERATOR  # column coset reps k_j = 7^j
 
+# Values stacked into one multiply-and-reduce by the quotient's weighted sum
+# of gate constraints (a chunk of 2^16-row values is 128 MiB)
+_WSUM_CHUNK = 256
+# Witness columns whose copy terms (and DEEP dot products) are formed at one
+# time: a block's terms are a few GiB at 2^16-2^17 rows
+_COPY_BLOCK_COLS = 1024
+
 # Memory schedule of `prove` (the JAX package picks it by backend and has the
 # test hook FORCE_LEAN; the port has one device, so one switch): False
 # streams, recomputing a bundle's commitment LDE from its coefficients where
@@ -168,25 +175,24 @@ def _commit_cols_with_coeffs(cols: GF, rate: int, cap_size: int):
 
 
 def build_setup(ir: PlonkishIR, const_cols_int: np.ndarray,
-                permutation: np.ndarray,
+                wiring: "CopyWiring",
                 cfg: PlonkishConfig = PlonkishConfig(),
                 device=None) -> PlonkishSetup:
-    """permutation: (num_witness, n, 2) int array mapping each cell to its
-    cycle-successor (col, row); identity where unconstrained."""
+    """const_cols_int: (num_const, n) ints (Python or numpy); wiring: the
+    copy permutation as the cells it moves (`CopyWiring.identity()` where
+    nothing is copied)."""
     device = gl.resolve_device(device)
     n = 1 << ir.log_n
     w = gl.primitive_root_of_unity(ir.log_n)
-    # sigma[j, i] = k[perm_col] * w^perm_row — two gathers + one field mul
+    # sigma[j, i] = k_j * w^i everywhere, then the wired cells' successors
     w_pows = gl.powers_dev_cached(w, n, device=device)
     ks_vec = gl.powers_dev_cached(K_COSET_GEN, max(ir.num_witness, 1),
                                   device=device)
-    pc = torch.from_numpy(np.ascontiguousarray(permutation[:, :, 0],
-                                               dtype=np.int64)).to(device)
-    pr = torch.from_numpy(np.ascontiguousarray(permutation[:, :, 1],
-                                               dtype=np.int64)).to(device)
-    sigma_cols = gl.mul(gl.take(ks_vec, pc, axis=0),
-                        gl.take(w_pows, pr, axis=0))
-    del pc, pr
+    sigma_cols = gl.mul(ks_vec[:ir.num_witness, None], w_pows[None, :])
+    cells = torch.from_numpy(wiring.cells).to(device)
+    succ = torch.from_numpy(wiring.succ).to(device)
+    sigma_cols.view(-1)[cells] = gl.mul(ks_vec[succ // n], w_pows[succ % n])
+    del cells, succ
     const_cols = (gl.from_int(const_cols_int, device) if ir.num_const
                   else gl.zeros((0, n), device))
     # pad lookup tables to n rows (repeat entry 0) and lay out as columns
@@ -219,43 +225,67 @@ def setup_from_columns(const_cols: GF, sigma_cols: GF, table_cols: GF,
                          tree=tree, cap_np=gl.to_ints(tree.cap))
 
 
-def identity_permutation(num_witness: int, n: int) -> np.ndarray:
-    perm = np.empty((num_witness, n, 2), dtype=np.int64)
-    perm[:, :, 0] = np.arange(num_witness)[:, None]
-    perm[:, :, 1] = np.arange(n)[None, :]
-    return perm
+@dataclasses.dataclass
+class CopyWiring:
+    """A copy permutation given by the cells it moves: cell `cells[i]`
+    (flat index col * n + row) has successor `succ[i]`; every other cell is
+    its own successor. A dense (num_witness, n, 2) successor array would take
+    gigabytes for the wide circuits."""
+
+    cells: np.ndarray  # int64
+    succ: np.ndarray   # int64
+
+    @staticmethod
+    def identity() -> "CopyWiring":
+        """No cell is copied to another."""
+        return CopyWiring(np.zeros(0, np.int64), np.zeros(0, np.int64))
 
 
-def apply_copy_cycles(perm: np.ndarray,
-                      cycles: Sequence[Sequence[Tuple[int, int]]]):
-    """Wire cells into copy cycles: each cycle is [(col,row), ...].
+def wire_copy_pairs(n: int, a: np.ndarray, b: np.ndarray) -> CopyWiring:
+    """The JAX package's `apply_copy_cycles` on the identity, for linked
+    pairs (a[i], b[i]) taken in order ((m, 2) arrays of (col, row); cycle
+    [c0, c1, c2] is the pairs (c0, c1), (c1, c2)); the same successors, as a
+    `CopyWiring`.
 
-    Uses swap-based merging (sigma(a), sigma(b) = sigma(b), sigma(a)) with a
-    union-find guard so a cell shared by several declared cycles merges them
-    into ONE orbit instead of overwriting its successor link (which would
-    silently break the bijection and unsound the copy argument). For disjoint
-    well-formed cycles this produces exactly the naive successor links."""
-    parent: dict = {}
-
-    def find(x):
-        root = x
-        while parent.get(root, root) != root:
-            root = parent[root]
-        while parent.get(x, x) != x:
-            parent[x], x = root, parent[x]
-        return root
-
-    for cycle in cycles:
-        for a, b in zip(cycle, cycle[1:]):
-            ra, rb = find(a), find(b)
-            if ra == rb:
-                continue
-            parent[ra] = rb
-            sa = (int(perm[a[0], a[1], 0]), int(perm[a[0], a[1], 1]))
-            sb = (int(perm[b[0], b[1], 0]), int(perm[b[0], b[1], 1]))
-            perm[a[0], a[1]] = sb
-            perm[b[0], b[1]] = sa
-    return perm
+    The wide circuits wire millions of pairs, each joining a cell that no
+    other pair names (a sponge-tile cell) to a cell that several may share
+    (a staged encoding cell that seven queue regions read). Such a pair
+    joins two different orbits, so its merge is the swap of the two cells'
+    successors, and swaps commute unless they touch one cell. Applying the
+    k-th pair of every shared cell together, for k = 0, 1, ..., is then the
+    sequential merge exactly, vectorised. A pair whose two cells are both
+    named by other pairs is refused: its merge may join one orbit to itself,
+    which this vectorised form does not cover."""
+    fa = a[:, 0] * n + a[:, 1]
+    fb = b[:, 0] * n + b[:, 1]
+    if len(fa) == 0:
+        return CopyWiring.identity()
+    ids, inv, counts = np.unique(np.concatenate([fa, fb]),
+                                 return_inverse=True, return_counts=True)
+    ca, cb = counts[inv[:len(fa)]], counts[inv[len(fa):]]
+    if np.any((ca > 1) & (cb > 1)):
+        raise ValueError("wire_copy_pairs: a pair whose cells are both "
+                         "shared with other pairs")
+    a_shared = ca > 1
+    shared = np.where(a_shared, fa, fb)
+    fresh = np.where(a_shared, fb, fa)
+    # rank of each pair among the pairs of its shared cell, in pair order
+    order = np.argsort(shared, kind="stable")
+    srt = shared[order]
+    starts = np.r_[0, np.flatnonzero(srt[1:] != srt[:-1]) + 1]
+    rank = np.empty(len(srt), dtype=np.int64)
+    rank[order] = np.arange(len(srt)) - np.repeat(
+        starts, np.diff(np.r_[starts, len(srt)]))
+    # successor table over the touched cells only, identity to begin with
+    succ = ids.copy()
+    pos_shared = np.searchsorted(ids, shared)
+    pos_fresh = np.searchsorted(ids, fresh)
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        ps, pf = pos_shared[sel], pos_fresh[sel]
+        succ[ps], succ[pf] = succ[pf], succ[ps].copy()
+    moved = succ != ids
+    return CopyWiring(ids[moved], succ[moved])
 
 
 # ---------------------------------------------------------------------------
@@ -409,35 +439,60 @@ def _chunk_products(t: GF2, num_chunks: int, chunk: int) -> GF2:
 # Prove-phase functions
 # ---------------------------------------------------------------------------
 
+def _chunk_blocks(C: int, copy_chunk: int):
+    """(first, end) copy chunks of each block of `_COPY_BLOCK_COLS` columns:
+    the copy terms of a wide trace are formed one block at a time."""
+    step = max(1, _COPY_BLOCK_COLS // copy_chunk)
+    return [(c, min(C, c + step)) for c in range(0, C, step)]
+
+
+def _copy_block_terms(wit: GF, other: GF, ids: GF, beta: GF2, gamma: GF2,
+                      c0: int, c1: int, copy_chunk: int):
+    """Chunk products of (w + beta * id + gamma) and (w + beta * sigma +
+    gamma) over copy chunks [c0, c1); `ids` are the block's id columns."""
+    cols = slice(c0 * copy_chunk, min((c1) * copy_chunk, wit.shape[0]))
+    nums = _chunk_products(_lin_term_device(wit[cols], ids, beta, gamma),
+                           c1 - c0, copy_chunk)
+    dens = _chunk_products(_lin_term_device(wit[cols], other[cols], beta,
+                                            gamma), c1 - c0, copy_chunk)
+    return nums, dens
+
+
 def _stage2(witness: GF, sigma_cols: GF, beta: GF2, gamma: GF2, w_pows: GF,
             ks_vec: GF, copy_chunk: int) -> GF:
     """Copy-permutation columns (the JAX package's `_stage2_fn`): per-column
-    linear terms as one batched op, within-chunk products over the chunk
-    axis, cross-chunk running products, then the grand product z over rows.
+    linear terms, within-chunk products over the chunk axis (a block of
+    columns at a time), cross-chunk running products (a log-depth scan over
+    the chunk axis), then the grand product z over rows.
 
     Returns (2 * C, n) rows [z.c0, z.c1, pp_0.c0, pp_0.c1, ...]."""
     num_witness = witness.shape[0]
     C = len(_copy_chunks(num_witness, copy_chunk))
-    # per-column id_j = w_pows * k_j : (nw, n)
-    ids = gl.mul(w_pows[None, :], ks_vec[:num_witness, None])
-    nums = _chunk_products(_lin_term_device(witness, ids, beta, gamma),
-                           C, copy_chunk)
-    del ids
-    dens = _chunk_products(
-        _lin_term_device(witness, sigma_cols, beta, gamma), C, copy_chunk)
-    ratios = gl.ext_mul(nums, gl.ext_inv(dens))  # (C, n)
-    del nums, dens
+    parts = []
+    for c0, c1 in _chunk_blocks(C, copy_chunk):
+        # id_j = w_pows * k_j for the block's columns
+        ids = gl.mul(w_pows[None, :], ks_vec[c0 * copy_chunk:
+                                             min(c1 * copy_chunk,
+                                                 num_witness), None])
+        nums, dens = _copy_block_terms(witness, sigma_cols, ids, beta, gamma,
+                                       c0, c1, copy_chunk)
+        del ids
+        parts.append(gl.ext_mul(nums, gl.ext_inv(dens)))
+        del nums, dens
+    ratios = gl.ext_concat(parts, axis=0)  # (C, n)
+    del parts
     # inclusive running product over the chunk axis
-    incl = [ratios[0]]
-    for c in range(1, C):
-        incl.append(gl.ext_mul(incl[-1], ratios[c]))
-    z_col = _ext_prefix_product_exclusive(incl[-1])
+    incl_t = _ext_scan_inclusive(GF2(ratios.c0.t(), ratios.c1.t()),
+                                 gl.ext_mul)
+    del ratios
+    incl = GF2(incl_t.c0.t(), incl_t.c1.t())
+    z_col = _ext_prefix_product_exclusive(incl[C - 1])
     # pp_c = z * prod_{t<=c} ratio_t for c in 0..C-2
-    rows = [z_col.c0, z_col.c1]
-    for c in range(C - 1):
-        pp = gl.ext_mul(z_col, incl[c])
-        rows.extend([pp.c0, pp.c1])
-    return gl.stack(rows, axis=0)
+    pp = gl.ext_mul(GF2(z_col.c0[None], z_col.c1[None]), incl[:C - 1])
+    del incl, incl_t
+    return torch.cat([torch.stack([z_col.c0, z_col.c1]),
+                      torch.stack([pp.c0, pp.c1], dim=1).reshape(
+                          2 * (C - 1), witness.shape[-1])])
 
 
 def _stage3(ir: PlonkishIR, witness: GF, table_cols: GF, m_cols: GF,
@@ -450,20 +505,34 @@ def _stage3(ir: PlonkishIR, witness: GF, table_cols: GF, m_cols: GF,
             [table_cols[start + j] for j in range(width)], theta)
         h_tables.append(gl.ext_mul_base(
             gl.ext_inv(gl.ext_add(t_comp, beta_lk)), m_cols[t]))
-    h_sets = []
-    for _tbl, cols in ir.lookup_sets:
-        a_comp = _compress_theta([witness[c] for c in cols], theta)
-        h_sets.append(gl.ext_inv(gl.ext_add(a_comp, beta_lk)))
-    delta = None
-    for h in h_sets:
-        delta = h if delta is None else gl.ext_add(delta, h)
+    # every set's 1/(a + beta) in one batched inversion
+    h_sets = gl.ext_inv(gl.ext_add(_set_compressions(ir, witness, theta),
+                                   beta_lk))
+    delta = gl.ext_sum_axis(h_sets, axis=0)
     for h in h_tables:
         delta = gl.ext_sub(delta, h)
     s_col = _ext_prefix_sum_exclusive(delta)
     out = [s_col.c0, s_col.c1]
-    for h in h_tables + h_sets:
+    for h in h_tables:
         out.extend([h.c0, h.c1])
-    return gl.stack(out, axis=0)
+    return torch.cat([torch.stack(out),
+                      torch.stack([h_sets.c0, h_sets.c1], dim=1).reshape(
+                          -1, witness.shape[-1])])
+
+
+def _set_compressions(ir: PlonkishIR, cols, theta: GF2) -> GF2:
+    """(S, n) theta-compressions of the S lookup sets' witness columns
+    (`cols[c]` is column c)."""
+    comps = [_compress_theta([cols[c] for c in set_cols], theta)
+             for _tbl, set_cols in ir.lookup_sets]
+    return GF2(torch.stack([x.c0 for x in comps]),
+               torch.stack([x.c1 for x in comps]))
+
+
+def _ext_weighted_sum(vals: GF2, weights: GF2) -> GF2:
+    """sum_i weights[i] * vals[i] over the first axis, ext by ext."""
+    wb = GF2(weights.c0[:, None], weights.c1[:, None])
+    return gl.ext_sum_axis(gl.ext_mul(wb, vals), axis=0)
 
 
 def _ceil_pow2(x: int) -> int:
@@ -619,11 +688,22 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
         return tuple(sorted(need))
 
     def _weighted_sum(vals, apows, off, zh_inv):
-        """zh_inv * sum_i alpha^(off+i) * vals[i] for base-field vals."""
+        """zh_inv * sum_i alpha^(off+i) * vals[i] for base-field vals.
+
+        Up to `_WSUM_CHUNK` values are stacked and multiplied by their alpha
+        powers in one launch per component, then summed by a log-depth tree:
+        a few launches per chunk where one value took four. Field addition
+        is exact, so the order of the sum does not change it."""
         c0 = c1 = None
-        for i, gv in enumerate(vals):
-            a = apows[off + i]
-            t0, t1 = gl.mul(gv, a.c0), gl.mul(gv, a.c1)
+        for s in range(0, len(vals), _WSUM_CHUNK):
+            part = vals[s:s + _WSUM_CHUNK]
+            shape = torch.broadcast_shapes(*(v.shape for v in part))
+            blk = torch.stack([v.expand(shape) for v in part])
+            a = apows[off + s:off + s + len(part)]
+            ab = (-1,) + (1,) * len(shape)
+            t0 = gl.sum_axis(gl.mul(blk, a.c0.reshape(ab)), axis=0)
+            t1 = gl.sum_axis(gl.mul(blk, a.c1.reshape(ab)), axis=0)
+            del blk
             c0 = t0 if c0 is None else gl.add(c0, t0)
             c1 = t1 if c1 is None else gl.add(c1, t1)
         return GF2(gl.mul(c0, zh_inv), gl.mul(c1, zh_inv))
@@ -648,12 +728,6 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
         n = wit_ev.shape[-1]
         z_ext = GF2(s2_ev[0], s2_ev[1])
         z_next = GF2(_roll_next(s2_ev[0]), _roll_next(s2_ev[1]))
-        ids_b = gl.mul(xs[None, :], ks_vec[:nw, None])
-        nums_b = _chunk_products(
-            _lin_term_device(wit_ev, ids_b, beta, gamma), C, ir.copy_chunk)
-        del ids_b
-        dens_b = _chunk_products(
-            _lin_term_device(wit_ev, sigma_ev, beta, gamma), C, ir.copy_chunk)
         # prev_t = [z, pp_0..pp_{C-2}]; nxt_t = [pp_0..pp_{C-2}, z_next]
         pp = s2_ev[2:2 * C]
         pps_b = GF2(pp[0::2], pp[1::2])  # (C-1, n)
@@ -661,11 +735,18 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
                      torch.cat([z_ext.c1[None], pps_b.c1]))
         nxt_b = GF2(torch.cat([pps_b.c0, z_next.c0[None]]),
                     torch.cat([pps_b.c1, z_next.c1[None]]))
-        cv_b = gl.ext_sub(gl.ext_mul(nxt_b, dens_b),
-                          gl.ext_mul(prev_b, nums_b))  # (C, n)
         comb = None
-        for t in range(C):
-            term = gl.ext_mul(apows[G + t], cv_b[t])
+        for c0, c1 in _chunk_blocks(C, ir.copy_chunk):
+            ids_b = gl.mul(xs[None, :], ks_vec[c0 * ir.copy_chunk:
+                                               min(c1 * ir.copy_chunk, nw),
+                                               None])
+            nums_b, dens_b = _copy_block_terms(wit_ev, sigma_ev, ids_b, beta,
+                                               gamma, c0, c1, ir.copy_chunk)
+            del ids_b
+            cv_b = gl.ext_sub(gl.ext_mul(nxt_b[c0:c1], dens_b),
+                              gl.ext_mul(prev_b[c0:c1], nums_b))
+            del nums_b, dens_b
+            term = _ext_weighted_sum(cv_b, apows[G + c0:G + c1])
             comb = term if comb is None else gl.ext_add(comb, term)
         return gl.ext_mul_base(comb, zh_inv)
 
@@ -687,14 +768,16 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
             h_tables = [GF2(s3_ev[2 + 2 * t], s3_ev[3 + 2 * t])
                         for t in range(n_tables)]
             h_ofs = 2 + 2 * n_tables
-            h_sets = [GF2(s3_ev[h_ofs + 2 * s], s3_ev[h_ofs + 2 * s + 1])
-                      for s in range(len(ir.lookup_sets))]
-            one_v = gl.ext_ones((n,), s2_ev.device)
-            for i, (_tbl, cols) in enumerate(ir.lookup_sets):
-                a_comp = _compress_theta([wit_cols[cc] for cc in cols], theta)
-                denom = gl.ext_add(a_comp, beta_lk)
-                lookup_vals.append(gl.ext_sub(gl.ext_mul(h_sets[i], denom),
-                                              one_v))
+            S = len(ir.lookup_sets)
+            h_sets = GF2(s3_ev[h_ofs:h_ofs + 2 * S:2],
+                         s3_ev[h_ofs + 1:h_ofs + 2 * S:2])  # (S, n)
+            # the S set terms h_s * (a_s + beta) - 1, batched, and their
+            # share of the alpha combination
+            one = gl.ext_ones((), s2_ev.device)
+            set_vals = gl.ext_sub(gl.ext_mul(h_sets, gl.ext_add(
+                _set_compressions(ir, wit_cols, theta), beta_lk)), one)
+            comb = _ext_weighted_sum(set_vals, apows[G + C:G + C + S])
+            del set_vals
             for t, (start, width) in enumerate(tslices):
                 t_comp = _compress_theta(
                     [table_ev[start + j] for j in range(width)], theta)
@@ -702,15 +785,14 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
                 m_ext = gl.ext_from_base(s2_ev[m_ofs + t])
                 lookup_vals.append(gl.ext_sub(gl.ext_mul(h_tables[t], denom),
                                               m_ext))
-            s_trans = gl.ext_sub(s_next, s_ext)
-            for h in h_sets:
-                s_trans = gl.ext_sub(s_trans, h)
+            s_trans = gl.ext_sub(gl.ext_sub(s_next, s_ext),
+                                 gl.ext_sum_axis(h_sets, axis=0))
             for h in h_tables:
                 s_trans = gl.ext_add(s_trans, h)
             lookup_vals.append(s_trans)
-        for i, cv in enumerate(lookup_vals):
-            comb = gl.ext_add(comb, gl.ext_mul(
-                apows[G + C + i], cv))
+            # tables and the running-sum transition follow the S sets
+            for i, cv in enumerate(lookup_vals):
+                comb = gl.ext_add(comb, gl.ext_mul(apows[G + C + S + i], cv))
         comb = gl.ext_mul_base(comb, zh_inv)
         # boundary z(1) = 1 (and s(1) = 0 for lookups)
         z_ext = GF2(s2_ev[0], s2_ev[1])
@@ -722,11 +804,14 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
             comb = gl.ext_add(comb, gl.ext_mul(
                 apows[b_z + 1],
                 gl.ext_mul_base(s_ext, xm1_inv)))
+        # one inversion per distinct PI row (row 0's point is 1)
+        den_invs: Dict[int, GF] = {0: xm1_inv}
         for idx, (col, row) in enumerate(ir.public_input_cells):
             a = apows[pi_off + idx]
-            pt = pow(w_gen, row, P)
-            den_inv = gl.inv(gl.sub(xs, gl.scalar_like(pt, xs)))
-            term = gl.mul(gl.sub(wit_cols[col], pi_vals[idx]), den_inv)
+            if row not in den_invs:
+                pt = pow(w_gen, row, P)
+                den_invs[row] = gl.inv(gl.sub(xs, gl.scalar_like(pt, xs)))
+            term = gl.mul(gl.sub(wit_cols[col], pi_vals[idx]), den_invs[row])
             comb = gl.ext_add(comb, GF2(gl.mul(term, a.c0),
                                         gl.mul(term, a.c1)))
         return comb
@@ -830,9 +915,16 @@ def _deep_partial(deep: GF2, cols: GF, ood_z: GF2, ood_zw, gp_z: GF2, gp_zw,
     def bundle(deep, g: GF2, ood: GF2, inv_den: GF2):
         # sum_j g_j (col_j - ood_j) = (dot(g.c0, cols), dot(g.c1, cols))
         #                             + sum_j g_j * (-ood_j)
-        # then one ext mul by the shared inverse denominator.
-        v0 = gl.sum_axis(gl.mul(cols, g.c0[:, None]), axis=0)
-        v1 = gl.sum_axis(gl.mul(cols, g.c1[:, None]), axis=0)
+        # then one ext mul by the shared inverse denominator. The dots run
+        # over blocks of `_COPY_BLOCK_COLS` columns (exact, so any order).
+        v0 = v1 = None
+        for j0 in range(0, cols.shape[0], _COPY_BLOCK_COLS):
+            blk = cols[j0:j0 + _COPY_BLOCK_COLS]
+            gb = g[j0:j0 + _COPY_BLOCK_COLS]
+            d0 = gl.sum_axis(gl.mul(blk, gb.c0[:, None]), axis=0)
+            d1 = gl.sum_axis(gl.mul(blk, gb.c1[:, None]), axis=0)
+            v0 = d0 if v0 is None else gl.add(v0, d0)
+            v1 = d1 if v1 is None else gl.add(v1, d1)
         s = gl.ext_sum_axis(gl.ext_mul(g, gl.ext_neg(ood)), axis=0)
         tot = GF2(gl.add(v0, s.c0), gl.add(v1, s.c1))
         return gl.ext_add(deep, gl.ext_mul(tot, inv_den))

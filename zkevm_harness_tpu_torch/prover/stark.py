@@ -15,7 +15,26 @@ from ..utils import field_int as fi
 
 
 class DeviceAlgebra:
-    """Constraints over base-field tensors (a whole coset at once)."""
+    """Constraints over base-field tensors (a whole coset at once).
+
+    `stacks_tiles`: a circuit built from repeated column tiles (the sponge
+    tiles of circuits/narrow_region.py and the RAM permutation) may evaluate
+    all its tiles at once, each lane stacked into one (tiles, n) tensor, so
+    that an operation is one launch for every tile; the constraint values and
+    their order are those of the tile-by-tile loop. The host algebras
+    evaluate tile by tile."""
+
+    stacks_tiles = True
+
+    def __init__(self):
+        self._consts = {}  # (value, device) -> 0-d field tensor
+
+    def _const(self, c: int, like):
+        key = (c % P, like.device)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = gl.scalar_like(c, like)
+        return t
 
     def add(self, a, b):
         return gl.add(a, b)
@@ -27,10 +46,10 @@ class DeviceAlgebra:
         return gl.mul(a, b)
 
     def mul_int(self, a, c: int):
-        return gl.mul(a, gl.scalar_like(c % P, a))
+        return gl.mul(a, self._const(c, a))
 
     def add_int(self, a, c: int):
-        return gl.add(a, gl.scalar_like(c % P, a))
+        return gl.add(a, self._const(c, a))
 
 
 class HostExtAlgebra:
