@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py            # full run: flagship 130 x 2^19, one
-                                     # MainVM instance 764 x 2^16, then the
+                                     # MainVM instance 764 x 2^16, the
                                      # block's RAM permutation, sorters and
-                                     # log demuxer at production geometry
+                                     # log demuxer, then the hash block's
+                                     # hash circuits at production geometry
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -40,7 +41,25 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                each of types 8, 11, 9 and 4 is decomposed, proved twice,
                verified, its public inputs checked, and a tampered public
                input and OOD value rejected; launch counters of this phase
-  11. kernels  one line {"kernels": [...], "helpers": [...]}
+  11. hashes_golden  the first instance of each hash circuit of the small
+               hash block (keccak 5, SHA-256 6, L1-messages hasher 13, code
+               decommitter 3, decommitments sorter 2) proved on the card
+               equals test_artifacts/{name}_log{7,8}_{vk,proof}.json
+  12. hashes   the 293-round hash block (far calls to four deployed
+               callees, keccak and SHA-256 precompile calls, L1 messages) at
+               production geometry: the production VKs of types 2, 3, 6 and
+               13 equal setup/setup/base_layer/vk_N.json (type 5's digest
+               printed); every instance of types 5, 6, 13, 3 and 2 decomposed,
+               proved, verified, public inputs checked (the hasher's digest is
+               keccak256 of the L1 messages, each decommitter's the SHA-256
+               in its versioned hash, the round functions' final
+               accumulators in the last PI lanes); the first instance of each
+               proved twice, tampered copies rejected; then the same block's
+               L1-messages sorter (type 12, VK equal to vk_12.json) and MainVM
+               (type 1) instances; launch counters of this phase
+  13. kernels_hashes  gl_mul and poseidon2_permute against their plain
+               versions and timed at the hash path's shapes
+  14. kernels  one line {"kernels": [...], "helpers": [...]}
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises and
 the run exits non-zero.
@@ -51,6 +70,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -144,8 +164,9 @@ def main(argv=None) -> int:
                     help="print nvcc's per-kernel register and spill report")
     ap.add_argument("--profile", action="store_true",
                     help="prove each main path (and each memory and log "
-                         "circuit) once more under torch.profiler and print "
-                         "the device's busy share and the top kernels")
+                         "circuit, and each hash circuit) once more under "
+                         "torch.profiler and print the device's busy share "
+                         "and the top kernels")
     ap.add_argument("--compare-broadcast", action="store_true",
                     help="prove again with the elementwise kernels' broadcast "
                          "operands materialised in PyTorch (all of them, and "
@@ -168,12 +189,19 @@ def main(argv=None) -> int:
         return 1
 
     from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import decommitter_circuit as cdcirc
+    from zkevm_harness_tpu_torch.circuits import \
+        decommitts_sorter_circuit as dscirc
     from zkevm_harness_tpu_torch.circuits import events_sorter_circuit as ecirc
     from zkevm_harness_tpu_torch.circuits import flagship as fl
+    from zkevm_harness_tpu_torch.circuits import keccak_circuit as kcirc
+    from zkevm_harness_tpu_torch.circuits import \
+        linear_hasher_circuit as lhcirc
     from zkevm_harness_tpu_torch.circuits import log_demux_circuit as dcirc
     from zkevm_harness_tpu_torch.circuits import main_vm_circuit as mvc
     from zkevm_harness_tpu_torch.circuits import \
         ram_permutation_circuit as rcirc
+    from zkevm_harness_tpu_torch.circuits import sha256_circuit as shcirc
     from zkevm_harness_tpu_torch.circuits import \
         storage_sorter_circuit as sscirc
     from zkevm_harness_tpu_torch.circuits.types import GeometryConfig
@@ -182,6 +210,7 @@ def main(argv=None) -> int:
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
     from zkevm_harness_tpu_torch.utils import serde, tracing
+    from zkevm_harness_tpu_torch.utils.native import keccak256
     from zkevm_harness_tpu_torch.vm import isa
     from zkevm_harness_tpu_torch.witness import main_vm as wmv
     from zkevm_harness_tpu_torch.witness import oracle
@@ -189,8 +218,15 @@ def main(argv=None) -> int:
         compute_log_demux_artifacts
     from zkevm_harness_tpu_torch.witness.ram_permutation import \
         compute_ram_circuit_snapshots
+    from zkevm_harness_tpu_torch.witness.decommitter import \
+        compute_code_decommitter_artifacts
+    from zkevm_harness_tpu_torch.witness.linear_hasher import (
+        compute_hasher_circuit_artifacts, serialize_l1_message)
+    from zkevm_harness_tpu_torch.witness.precompile_circuits import (
+        compute_keccak_circuit_artifacts, compute_sha256_circuit_artifacts)
     from zkevm_harness_tpu_torch.witness.sorters import (
-        compute_events_circuit_artifacts, compute_storage_circuit_artifacts)
+        compute_decommitts_circuit_artifacts, compute_events_circuit_artifacts,
+        compute_storage_circuit_artifacts)
 
     t_start = time.time()
     records = []
@@ -932,6 +968,433 @@ def main(argv=None) -> int:
           streams={k: len(v) for k, v in streams.items()},
           path_s=round(path_s, 3), launches=launches_srt, types=per_type)
 
+    # -- 11. the golden hash block's hash circuits on the card ---------------
+    # the small hash block (golden.HASH_GOLDEN): the first instance of each
+    # hash circuit at the capacities of golden.HASH_CAPACITY
+    def hash_streams(tr):
+        calls = {a: [d for (_, q, d, _r) in tr.precompile_calls
+                     if q.address == a]
+                 for a in (golden.KECCAK_ADDRESS, golden.SHA256_ADDRESS)}
+        demuxed = oracle.demux_log_queue(tr.final_log_queue())
+        return {"keccak": calls[golden.KECCAK_ADDRESS],
+                "sha256": calls[golden.SHA256_ADDRESS],
+                "l1": [q for _, q in demuxed["l1"]],
+                "decommits": [q for _, q in tr.decommittment_queries],
+                "bytecodes": tr.decommitted_bytecodes}
+
+    def hash_circuits(st, caps):
+        """(name, circuit type, setup, decompose, prove, verify, expected
+        public inputs) of the five hash circuits: setup() gives (setup data,
+        geometry), decompose() (instances, context, artifacts)."""
+        def keccak_art():
+            a = compute_keccak_circuit_artifacts(st["keccak"], caps["keccak"],
+                                                 device=dev)
+            return a.instances, (a.challenges, a.gammas), a
+
+        def sha256_art():
+            a = compute_sha256_circuit_artifacts(st["sha256"], caps["sha256"],
+                                                 device=dev)
+            return a.instances, (a.challenges, a.gammas), a
+
+        def hasher_art():
+            a = compute_hasher_circuit_artifacts(
+                oracle.dedup_events(st["l1"]), caps["hasher"], device=dev)
+            return a.instances, None, a
+
+        def decommitter_art():
+            a = compute_code_decommitter_artifacts(
+                [q for q in st["decommits"] if q.is_fresh], st["bytecodes"],
+                device=dev)
+            return a.instances, None, a
+
+        def decommitts_art():
+            a = compute_decommitts_circuit_artifacts(
+                st["decommits"], caps["decommitts"], device=dev)
+            return a.instances, a.challenges, a
+
+        c = caps
+        return [
+            ("keccak", 5, lambda: ly.keccak_setup_data(c["keccak"],
+                                                       device=dev),
+             keccak_art,
+             lambda i, x: ly.prove_keccak_instance(i, x, c["keccak"],
+                                                   device=dev),
+             lambda i, x, p: ly.verify_keccak_instance(i, x, c["keccak"], p,
+                                                       device=dev),
+             kcirc.instance_public_inputs),
+            ("sha256", 6, lambda: ly.sha256_setup_data(c["sha256"],
+                                                       device=dev),
+             sha256_art,
+             lambda i, x: ly.prove_sha256_instance(i, x, c["sha256"],
+                                                   device=dev),
+             lambda i, x, p: ly.verify_sha256_instance(i, x, c["sha256"], p,
+                                                       device=dev),
+             shcirc.instance_public_inputs),
+            ("hasher", 13, lambda: ly.hasher_setup_data(c["hasher"],
+                                                        device=dev),
+             hasher_art,
+             lambda i, x: ly.prove_hasher_instance(i, c["hasher"],
+                                                   device=dev),
+             lambda i, x, p: ly.verify_hasher_instance(i, c["hasher"], p,
+                                                       device=dev),
+             lambda geo, i, x: lhcirc.expected_public_inputs(geo, i)),
+            ("decommitter", 3,
+             lambda: ly.code_decommitter_setup_data(c["decommitter"],
+                                                    device=dev),
+             decommitter_art,
+             lambda i, x: ly.prove_code_decommitter_instance(
+                 i, c["decommitter"], device=dev),
+             lambda i, x, p: ly.verify_code_decommitter_instance(
+                 i, c["decommitter"], p, device=dev),
+             lambda geo, i, x: cdcirc.expected_public_inputs(geo, i)),
+            ("decommitts", 2,
+             lambda: ly.decommitts_setup_data(c["decommitts"], device=dev),
+             decommitts_art,
+             lambda i, x: ly.prove_decommitts_instance(i, x, c["decommitts"],
+                                                       device=dev),
+             lambda i, x, p: ly.verify_decommitts_instance(
+                 i, x, c["decommitts"], p, device=dev),
+             dscirc.instance_public_inputs)]
+
+    t0 = time.time()
+    hcap = golden.HASH_CAPACITY
+    golden_s = {}
+    with ly.engine_override(scfg):
+        for name, _ct, setup_of, decompose, prove_one, verify_one, _pi in \
+                hash_circuits(hash_streams(golden.trace_hash_block(
+                    **golden.HASH_GOLDEN)), hcap):
+            t1 = time.time()
+            insts, ctx, _art = decompose()
+            gp = prove_one(insts[0], ctx)
+            gsd, ggeo = setup_of()
+            stem = os.path.join(GOLDEN_DIR, f"{name}_log{ggeo.log_n}")
+            with open(stem + "_vk.json") as f:
+                if gsd.vk != [int(v) for v in json.load(f)]:
+                    raise SystemExit(f"hashes_golden: {name} verification "
+                                     "key differs")
+            with open(stem + "_proof.json") as f:
+                if json.loads(json.dumps(serde.proof_to_json(gp))) != \
+                        json.load(f):
+                    raise SystemExit(f"hashes_golden: {name} proof differs "
+                                     "from the golden JSON")
+            if not verify_one(insts[0], ctx, gp):
+                raise SystemExit(f"hashes_golden: {name} proof does not "
+                                 "verify")
+            torch.cuda.synchronize()
+            golden_s[name] = round(time.time() - t1, 3)
+    ly._SETUP_CACHE.clear()
+    phase("hashes_golden", block=golden.HASH_GOLDEN, capacities=hcap,
+          vk_equal=True, proof_equal=True, verify=True, seconds=golden_s,
+          total_s=round(time.time() - t0, 3))
+
+    # -- 12. the hash block's hash circuits at production geometry ------------
+    # the block that far-calls and calls the precompiles (golden.HASH_BLOCK,
+    # 293 rounds); every instance of types 5, 6, 13, 3 and 2 at the
+    # GeometryConfig() capacities, then the same block's MainVM (type 1) and
+    # L1-messages sorter (type 12) instances
+    hprod_caps = {"keccak": geo_cfg.cycles_per_keccak256_circuit,
+                  "sha256": geo_cfg.cycles_per_sha256_circuit,
+                  "hasher": geo_cfg.limit_for_l1_messages_pudata_hasher,
+                  "decommitter": geo_cfg.cycles_per_code_decommitter,
+                  "decommitts": geo_cfg.cycles_per_code_decommitter_sorter}
+    htracer, htrace_s = timed(lambda: golden.trace_hash_block(
+        **golden.HASH_BLOCK))
+    hst = hash_streams(htracer)
+    fresh = [q for q in hst["decommits"] if q.is_fresh]
+    hblock = {"cycles": htracer.cycle_counter,
+              "keccak_calls": len(hst["keccak"]),
+              "sha256_calls": len(hst["sha256"]),
+              "decommitment_queries": len(hst["decommits"]),
+              "fresh_decommitments": len(fresh),
+              "l1_messages": len(hst["l1"]),
+              "memory_queries": len(htracer.memory_queries)}
+    if (hblock["cycles"], hblock["keccak_calls"], hblock["sha256_calls"],
+            hblock["decommitment_queries"], hblock["fresh_decommitments"],
+            hblock["l1_messages"]) != (1520, 293, 293, 37, 4, 384):
+        raise SystemExit(f"hashes: the hash block is not the expected one: "
+                         f"{hblock}")
+    serialized = b"".join(serialize_l1_message(q)
+                          for q in oracle.dedup_events(hst["l1"]))
+    hper_type = {}
+    tracing.GLOBAL.enabled = True
+    ck.reset_launches()
+    t_path = time.time()
+
+    def vk_digest(vk):
+        return hashlib.sha256(",".join(str(int(v)) for v in vk)
+                              .encode()).hexdigest()
+
+    def check_instance(name, sd, geo, inst, ctx, proof, verify_one, pis_of):
+        """Public inputs as expected, shapes, tampered copies refused."""
+        expected = [int(v) % P for v in pis_of(geo, inst, ctx)]
+        if [int(v) for v in proof.public_inputs] != expected:
+            raise SystemExit(f"hashes: {name}: public inputs are not the "
+                             "expected ones")
+        assert len(proof.ood_witness) == sd.ir.num_witness
+        assert all(0 <= v < P for pair in proof.ood_witness for v in pair)
+        assert proof.witness_cap.shape == (mv_cfg.cap_size, 4)
+        bad_pi, bad_ood = copy.deepcopy(proof), copy.deepcopy(proof)
+        bump_pi(bad_pi)
+        bump_ood(bad_ood)
+        tamper = {"public_input": not verify_one(inst, ctx, bad_pi)
+                  and not pk.verify(sd.ir, sd.vk, bad_pi, sd.config,
+                                    device=dev),
+                  "ood_witness": not verify_one(inst, ctx, bad_ood)}
+        if not all(tamper.values()):
+            raise SystemExit(f"hashes: {name}: a tampered proof was "
+                             f"accepted: {tamper}")
+        return expected, tamper
+
+    with ly.engine_override(mv_cfg):
+        for name, ctype, setup_of, decompose, prove_one, verify_one, \
+                pis_of in hash_circuits(hst, hprod_caps):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(ck.LAUNCHES)
+            (insts, ctx, art), art_s = timed(decompose)
+            want_n = {"decommitter": len(fresh)}.get(name, 1)
+            if len(insts) != want_n:
+                raise SystemExit(f"hashes: {name}: expected {want_n} "
+                                 f"instances, got {len(insts)}")
+            (sd, geo), setup_s = timed(setup_of)
+            rec = {"circuit_type": ctype, "log_n": sd.ir.log_n,
+                   "width": sd.ir.num_witness, "const_cols": sd.ir.num_const,
+                   "gate_constraints": sd.ir.num_gate_constraints,
+                   "gate_degree": sd.ir.gate_degree,
+                   "lookup_sets": len(sd.ir.lookup_sets),
+                   "instances": len(insts), "vk_sha256": vk_digest(sd.vk)}
+            vk_path = os.path.join(PROD_VK_DIR, f"vk_{ctype}.json")
+            if ctype != 5:  # the JAX package committed no VK of type 5
+                with open(vk_path) as f:
+                    if sd.vk != [int(v) for v in json.load(f)]:
+                        raise SystemExit(
+                            f"hashes: the production VK of type {ctype} "
+                            f"differs from setup/setup/base_layer/"
+                            f"vk_{ctype}.json")
+                rec["vk_equal"] = True
+            proves, verifies, fills, warm = [], [], [], None
+            for k, inst in enumerate(insts):
+                tracing.GLOBAL.spans.clear()
+                before_prove = dict(ck.LAUNCHES)
+                proof, prove_s = timed(lambda: prove_one(inst, ctx))
+                if k == 0:
+                    rec["launches_one_prove"] = {
+                        kk: ck.LAUNCHES[kk] - before_prove[kk]
+                        for kk in ck.LAUNCHES}
+                    spans = tracing.GLOBAL.flat_durations()
+                    rec["stages_s"] = prove_stages(spans)
+                fills.append(round(tracing.GLOBAL.flat_durations().get(
+                    "layers.witness", 0.0), 3))
+                ok, verify_s = timed(lambda: verify_one(inst, ctx, proof))
+                if not ok:
+                    raise SystemExit(f"hashes: {name} instance {k} does not "
+                                     "verify")
+                proves.append(round(prove_s, 3))
+                verifies.append(round(verify_s, 3))
+                if k == 0:
+                    again, warm_s = timed(lambda: prove_one(inst, ctx))
+                    if serde.proof_to_json(again) != \
+                            serde.proof_to_json(proof):
+                        raise SystemExit(f"hashes: {name}: a second prove "
+                                         "gave a different proof")
+                    del again
+                    warm = round(warm_s, 3)
+                    if args.profile:  # as in phase `sorters`
+                        counted = dict(ck.LAUNCHES)
+                        _, rows = device_rows(lambda: prove_one(inst, ctx),
+                                              host_too=False)
+                        ck.LAUNCHES.update(counted)
+                        busy_s = sum(r[2] for r in rows) / 1e6
+                        rec["device_busy_s"] = round(busy_s, 3)
+                        rec["device_idle_share"] = round(1 - busy_s / warm_s,
+                                                         3)
+                    expected, tamper = check_instance(
+                        name, sd, geo, inst, ctx, proof, verify_one, pis_of)
+                    rec["public_inputs"] = len(expected)
+                    rec["tampered_rejected"] = tamper
+                pis = [int(v) for v in proof.public_inputs]
+                if name in ("keccak", "sha256"):
+                    if pis[-5:-3] != [int(x) for x in art.final_accs] or \
+                            pis[-1] != art.total_invocations:
+                        raise SystemExit(f"hashes: {name}: final "
+                                         "accumulators are not in the last "
+                                         "PI lanes")
+                    rec["invocations"] = art.total_invocations
+                    rec["slots"] = geo.capacity
+                elif name == "hasher":
+                    if lhcirc.digest_bytes(pis) != keccak256(serialized) \
+                            or art.digest != keccak256(serialized):
+                        raise SystemExit("hashes: the hasher's digest is not "
+                                         "keccak256 of the L1 messages")
+                    rec["digest_is_keccak256"] = True
+                    rec["blocks"] = len(inst.blocks)
+                    rec["slots"] = geo.capacity
+                elif name == "decommitter":
+                    words = hst["bytecodes"][art.hashes[k]]
+                    sha = hashlib.sha256(b"".join(
+                        int(w).to_bytes(32, "big") for w in words)).digest()
+                    if cdcirc.digest_bytes(pis) != sha or \
+                            sha[4:] != art.hashes[k].to_bytes(32, "big")[4:]:
+                        raise SystemExit(f"hashes: decommitter instance {k}: "
+                                         "digest is not the SHA-256 inside "
+                                         "the versioned hash")
+                    rec["digest_in_versioned_hash"] = True
+                    rec.setdefault("blocks", []).append(len(inst.blocks))
+                    rec["slots"] = geo.capacity
+                else:
+                    rec["requests"] = int(inst.num_items)
+                    rec["fresh"] = int(inst.out_items)
+                del proof
+            rec.update({
+                "artifacts_s": round(art_s, 3), "setup_s": round(setup_s, 3),
+                "witness_fill_s": fills, "prove_s": proves,
+                "prove_warm_s": warm, "verify_s": verifies, "verify": True,
+                "public_inputs_as_expected": True,
+                "second_proof_equal": True,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": {k: ck.LAUNCHES[k] - before[k]
+                             for k in ck.LAUNCHES}})
+            hper_type[name] = rec
+            del sd, geo
+            ly._SETUP_CACHE.clear()
+
+        # the same block's L1-messages sorter (type 12): its output feeds the
+        # hasher
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(ck.LAUNCHES)
+        ecap = geo_cfg.cycles_per_events_or_l1_messages_sorter
+        l1_art, art_s = timed(lambda: compute_events_circuit_artifacts(
+            hst["l1"], ecap, circuit_type=12, device=dev))
+        (sd, geo), setup_s = timed(lambda: ly.events_setup_data(
+            ecap, circuit_type=12, device=dev))
+        with open(os.path.join(PROD_VK_DIR, "vk_12.json")) as f:
+            if sd.vk != [int(v) for v in json.load(f)]:
+                raise SystemExit("hashes: the production VK of type 12 "
+                                 "differs from setup/setup/base_layer/"
+                                 "vk_12.json")
+        if len(l1_art.instances) != 1:
+            raise SystemExit("hashes: expected one L1-sorter instance")
+        l1_inst = l1_art.instances[0]
+        proof, prove_s = timed(lambda: ly.prove_events_instance(
+            l1_inst, l1_art.challenges, ecap, circuit_type=12, device=dev))
+        l1_verify = lambda i, x, p: ly.verify_events_instance(  # noqa: E731
+            i, x, ecap, p, circuit_type=12, device=dev)
+        ok, verify_s = timed(lambda: l1_verify(l1_inst, l1_art.challenges,
+                                               proof))
+        if not ok:
+            raise SystemExit("hashes: the L1 sorter proof does not verify")
+        expected, tamper = check_instance(
+            "l1_sorter", sd, geo, l1_inst, l1_art.challenges, proof,
+            l1_verify, ecirc.instance_public_inputs)
+        hper_type["l1_sorter"] = {
+            "circuit_type": 12, "log_n": sd.ir.log_n,
+            "width": sd.ir.num_witness, "items": int(l1_inst.num_items),
+            "vk_equal": True, "artifacts_s": round(art_s, 3),
+            "setup_s": round(setup_s, 3), "prove_s": round(prove_s, 3),
+            "verify_s": round(verify_s, 3), "verify": True,
+            "public_inputs_as_expected": True, "tampered_rejected": tamper,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}}
+        del proof, sd, geo
+        ly._SETUP_CACHE.clear()
+
+    # the same block's MainVM instance (type 1) at production geometry: far
+    # calls and precompile write-backs, on phase 8's setup of that geometry
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ck.LAUNCHES)
+    hmv_art, art_s = timed(lambda: wmv.compute_main_vm_artifacts(
+        htracer, mv_geo, capacity=MAIN_VM_CYCLES, device=dev))
+    if len(hmv_art.instances) != 1:
+        raise SystemExit("hashes: expected one MainVM instance")
+    wmv.crosscheck_query_binding(htracer, mv_geo, hmv_art)
+    hmv_inst = hmv_art.instances[0]
+    hmv_wit, fill_s = timed(lambda: mvc.main_vm_witness(
+        mv_ir, mv_geo, hmv_inst, device=dev))
+    hmv_proof, prove_s = timed(lambda: pk.prove(mv_ir, mv_setup, hmv_wit,
+                                                mv_cfg, device=dev))
+    del hmv_wit
+    ok, verify_s = timed(lambda: pk.verify(mv_ir, mv_vk, hmv_proof, mv_cfg,
+                                           device=dev, strict=True))
+    if not ok:
+        raise SystemExit("hashes: the hash block's MainVM proof does not "
+                         "verify")
+    if [int(v) for v in hmv_proof.public_inputs] != \
+            [int(v) % P for v in mvc.expected_public_inputs(mv_geo,
+                                                            hmv_inst)]:
+        raise SystemExit("hashes: MainVM public inputs are not the expected "
+                         "ones")
+    bad = copy.deepcopy(hmv_proof)
+    bump_ood(bad)
+    if pk.verify(mv_ir, mv_vk, bad, mv_cfg, device=dev):
+        raise SystemExit("hashes: a tampered MainVM proof was accepted")
+    hper_type["main_vm"] = {
+        "circuit_type": 1, "log_n": mv_geo.log_n, "width": mv_ir.num_witness,
+        "cycles": htracer.cycle_counter, "artifacts_s": round(art_s, 3),
+        "witness_fill_s": round(fill_s, 3), "prove_s": round(prove_s, 3),
+        "verify_s": round(verify_s, 3), "verify": True,
+        "public_inputs_as_expected": True,
+        "tampered_rejected": {"ood_witness": True},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}}
+    del hmv_proof, bad
+    launches_hash = dict(ck.LAUNCHES)
+    hpath_s = time.time() - t_path
+    tracing.GLOBAL.enabled = False
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches_hash[name] <= 0:
+            raise SystemExit(f"hashes path launched {name} no time")
+    torch.cuda.empty_cache()
+    phase("hashes", block=golden.HASH_BLOCK, stream_counts=hblock,
+          trace_s=round(htrace_s, 3), capacities=hprod_caps,
+          config={"rate": mv_cfg.rate, "cap_size": mv_cfg.cap_size,
+                  "num_queries": mv_cfg.num_queries,
+                  "final_fri_size": mv_cfg.final_fri_size},
+          path_s=round(hpath_s, 3), launches=launches_hash, types=hper_type)
+
+    # K1 and K2 at the hash path's most-launched shapes
+    # (tools/count_hash_launches.py): one coset row of the keccak / hasher
+    # (2^14) and SHA-256 (2^18) traces for the multiply; the lone state of
+    # the transcripts and challenge sponges, and the 2^15 leaves of the
+    # keccak / hasher commitments, for the permutation
+    timing_hash = {}
+    for label, shape in (("gl_mul", (1 << 14,)),
+                         ("gl_mul_sha256", (1 << 18,))):
+        ta, tb = rand_field(shape), rand_field(shape)
+        errs["gl_mul"] = max(errs["gl_mul"], check_equal(
+            "gl_mul hashes shape", ck.gl_mul(ta, tb),
+            ck.gl_mul_plain(ta, tb)))
+        timing_hash[label] = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: ck.gl_mul(ta, tb), 10, 200),
+            "plain_ms": cuda_ms(lambda: ck.gl_mul_plain(ta, tb), 1, 3),
+            "bytes": 3 * 8 * ta.numel(), "ops": ta.numel() * OPS_MUL}
+        del ta, tb
+    for label, states in (("poseidon2_permute", 1 << 15),
+                          ("poseidon2_permute_one_state", 1)):
+        ts = rand_field((states, 12))
+        errs["poseidon2_permute"] = max(errs["poseidon2_permute"],
+                                        check_equal(
+            "poseidon2 hashes shape", ck.poseidon2_permute(ts),
+            ck.poseidon2_permute_plain(ts)))
+        reps = (10, 200) if states == 1 else (5, 50)
+        timing_hash[label] = {
+            "shape": [states, 12],
+            "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), *reps),
+            "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+            "bytes": 2 * 8 * 12 * states,
+            "ops": states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
+        del ts
+    for t in timing_hash.values():
+        by = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+        op = t["ops"] / PEAK_INT_ALU_PER_S * 1e3
+        t["bound_ms"] = max(by, op)
+        t["bound_by"] = "bytes" if by >= op else "operations"
+    phase("kernels_hashes", tolerance=0,
+          max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
+          timing=rounded(timing_hash))
+
     # -- optional: device busy share of one more prove -----------------------
     if args.profile:
         witness = fl.flagship_witness(ir, seed=0, device=dev)
@@ -1027,12 +1490,13 @@ def main(argv=None) -> int:
 
     # -- 6. the kernels line --------------------------------------------------
     def entry(name, source, replaces):
-        # launches: the three main paths together, each counted from 0 and
+        # launches: the four main paths together, each counted from 0 and
         # read just after its run; ms and the bound at the flagship's shape,
         # the MainVM and sorters paths' beside them
         t = timing[name]
         by_path = {"flagship": launches[name], "main_vm": launches_mv[name],
-                   "sorters": launches_srt[name]}
+                   "sorters": launches_srt[name],
+                   "hashes": launches_hash[name]}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -1045,6 +1509,10 @@ def main(argv=None) -> int:
             out["main_vm"] = {k: timing_mv[name][k] for k in keys}
         if name in timing_srt:
             out["sorters"] = {k: timing_srt[name][k] for k in keys}
+        hash_keys = [k for k in timing_hash if k.startswith(name)]
+        if hash_keys:
+            out["hashes"] = {h: {k: timing_hash[h][k] for k in keys}
+                             for h in hash_keys}
         if name + "_one_state" in timing_mv:
             out["one_state"] = {k: timing_mv[name + "_one_state"][k]
                                 for k in keys}

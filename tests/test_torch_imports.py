@@ -61,7 +61,14 @@ def test_every_module_imports_without_jax():
                      "circuits.narrow_region",
                      "circuits.events_sorter_circuit",
                      "circuits.storage_sorter_circuit",
-                     "circuits.log_demux_circuit"):
+                     "circuits.log_demux_circuit",
+                     "witness.precompile_rounds",
+                     "witness.precompile_circuits",
+                     "witness.linear_hasher", "circuits.keccak_circuit",
+                     "circuits.sha256_circuit",
+                     "circuits.linear_hasher_circuit",
+                     "circuits.decommitter_circuit",
+                     "circuits.decommitts_sorter_circuit"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 
@@ -179,6 +186,83 @@ def test_memory_and_log_entry_points_raise_without_cuda():
                                                art.challenges, 8),
                  lambda: ly.verify_ram_instance(art.instances[0],
                                                 art.challenges, 8, None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_hash_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import decommitter_circuit as dc
+    from zkevm_harness_tpu_torch.circuits import \
+        decommitts_sorter_circuit as ds
+    from zkevm_harness_tpu_torch.circuits import keccak_circuit as kc
+    from zkevm_harness_tpu_torch.circuits import linear_hasher_circuit as lh
+    from zkevm_harness_tpu_torch.circuits import sha256_circuit as sc
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.witness import decommitter, linear_hasher
+    from zkevm_harness_tpu_torch.witness import precompile_circuits as pc
+    from zkevm_harness_tpu_torch.witness import sorters
+
+    tracer = golden.trace_hash_block(**golden.HASH_GOLDEN)
+    calls = [d for (_, q, d, _r) in tracer.precompile_calls
+             if q.address == golden.KECCAK_ADDRESS]
+    queries = [q for _, q in tracer.decommittment_queries]
+    fresh = [q for q in queries if q.is_fresh]
+    cfg = pk.PlonkishConfig(**golden.MAIN_VM_CONFIG)
+    kart = pc.compute_keccak_circuit_artifacts(calls, 4, device="cpu")
+    kinst = kart.instances[0]
+    kpay = kc.instance_inputs(kinst.invocations, kart.challenges,
+                              kart.gammas)
+    dart = decommitter.compute_code_decommitter_artifacts(
+        fresh, tracer.decommitted_bytecodes, device="cpu")
+    sart = sorters.compute_decommitts_circuit_artifacts(queries, 8,
+                                                        device="cpu")
+    for call in (lambda: pc.compute_keccak_circuit_artifacts(calls, 4),
+                 lambda: pc.compute_sha256_circuit_artifacts(calls, 3),
+                 lambda: linear_hasher.compute_hasher_circuit_artifacts(
+                     [], 4),
+                 lambda: decommitter.compute_code_decommitter_artifacts(
+                     fresh, tracer.decommitted_bytecodes),
+                 lambda: sorters.compute_decommitts_circuit_artifacts(
+                     queries, 8),
+                 lambda: kc.draw_keccak_challenges(kinst.invocations),
+                 lambda: lh.instance_inputs(b"l1"),
+                 lambda: dc.instance_inputs([1, 2, 3]),
+                 lambda: kc.keccak_setup(kc.keccak_ir(7), kc.KeccakGeometry(7),
+                                         cfg),
+                 lambda: kc.keccak_witness(kc.keccak_ir(7),
+                                           kc.KeccakGeometry(7), kpay),
+                 lambda: sc.sha256_setup(sc.sha256_ir(8),
+                                         sc.Sha256Geometry(8), cfg),
+                 lambda: lh.hasher_setup(lh.hasher_ir(7),
+                                         lh.HasherGeometry(7), cfg),
+                 lambda: dc.decommitter_witness(
+                     dc.decommitter_ir(8), dc.DecommitterGeometry(8),
+                     dart.instances[0]),
+                 lambda: ds.decommitts_setup(ds.decommitts_ir(8, 1),
+                                             ds.DecommittsGeometry(8, 1),
+                                             cfg),
+                 lambda: ly.keccak_setup_data(4),
+                 lambda: ly.sha256_setup_data(3),
+                 lambda: ly.hasher_setup_data(4),
+                 lambda: ly.code_decommitter_setup_data(3),
+                 lambda: ly.decommitts_setup_data(8),
+                 lambda: ly.prove_keccak_instance(
+                     kinst, (kart.challenges, kart.gammas), 4),
+                 lambda: ly.verify_sha256_instance(
+                     kinst, (kart.challenges, kart.gammas), 3, None),
+                 lambda: ly.prove_hasher_instance(None, 4),
+                 lambda: ly.prove_code_decommitter_instance(
+                     dart.instances[0], 3),
+                 lambda: ly.verify_code_decommitter_instance(
+                     dart.instances[0], 3, None),
+                 lambda: ly.prove_decommitts_instance(
+                     sart.instances[0], sart.challenges, 8),
+                 lambda: ly.verify_decommitts_instance(
+                     sart.instances[0], sart.challenges, 8, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

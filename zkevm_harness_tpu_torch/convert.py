@@ -3,9 +3,11 @@
 The JAX package stores a field element as a (lo, hi) pair of uint32 planes;
 the port stores one int64 holding the u64 bit pattern. This module converts
 field arrays, a `PlonkishSetup` and a `PlonkishProof` in both directions.
-MainVM instances, artifacts and a tracer's queries are plain Python ints in
+MainVM instances, artifacts and a tracer's queries, and the instance payloads
+of the hash circuits, are plain Python ints (or object arrays of them) in
 dataclasses of the same field names in both packages, so their carrier is a
-field-by-field rebuild into the port's classes. It imports neither `jax` nor the JAX package: the caller hands over numpy arrays
+field-by-field rebuild into the port's classes, or into the classes a caller
+names. It imports neither `jax` nor the JAX package: the caller hands over numpy arrays
 (`np.asarray(gf.lo)`, `np.asarray(gf.hi)`) and gets numpy arrays back, so the
 tests can run both packages on the same data.
 """
@@ -21,8 +23,13 @@ import torch
 from .ops import goldilocks as gl
 from .ops import merkle as mk
 from .prover import plonkish as pk
+from .circuits import decommitter_circuit as dcc
+from .circuits import linear_hasher_circuit as lhc
 from .utils import serde
 from .witness import main_vm as wmv
+from .witness import precompile_circuits as wpc
+from .witness import precompile_rounds as wpr
+from .witness import sorters as wsort
 
 Pairs = Tuple[np.ndarray, np.ndarray]  # (lo, hi) uint32 planes
 
@@ -148,3 +155,46 @@ def tracer_queries(tracer) -> Dict:
         "cycle_states": list(tracer.cycle_states),
         "final_state": tracer.final_state,
     }
+
+
+# -- instance payloads of the hash circuits ---------------------------------
+
+def _rebuild(cls, src, **override):
+    """`src` (a dataclass of either package) as `cls`, field by field;
+    numpy arrays are copied as object arrays of Python ints."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = override[f.name] if f.name in override else getattr(src, f.name)
+        if isinstance(v, np.ndarray):
+            v = np.array([int(x) for x in v.ravel()],
+                         dtype=object).reshape(v.shape)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def round_function_instance_from(
+        inst, cls=wpc.RoundFunctionInstanceWitness,
+        invocation_cls=wpr.RoundFunctionInvocation):
+    """A keccak / SHA-256 `RoundFunctionInstanceWitness` of either package
+    as `cls` (the port's by default), its invocations as
+    `invocation_cls`."""
+    return _rebuild(cls, inst, invocations=[
+        _rebuild(invocation_cls, inv) for inv in inst.invocations])
+
+
+def hasher_inputs_from(inst, cls=lhc.HasherInstanceInputs):
+    """An L1-messages hasher `HasherInstanceInputs` of either package as
+    `cls` (the port's by default)."""
+    return _rebuild(cls, inst)
+
+
+def decommitter_inputs_from(inst, cls=dcc.DecommitterInstanceInputs):
+    """A code-decommitter `DecommitterInstanceInputs` of either package as
+    `cls` (the port's by default)."""
+    return _rebuild(cls, inst)
+
+
+def decommitts_instance_from(inst, cls=wsort.DecommittsCircuitInstance):
+    """A decommitments-sorter `DecommittsCircuitInstance` of either package
+    as `cls` (the port's by default)."""
+    return _rebuild(cls, inst)

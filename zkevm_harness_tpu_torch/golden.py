@@ -8,17 +8,24 @@ all proved with the JAX package. The port is held against them on the CPU
 (tests) and on the card (`chip_smoke.py`). The block is given as a function
 of an `isa` module, so that either package builds it from its own
 instruction classes.
+
+The hash block (`hash_block`) far-calls predeployed contracts and calls the
+keccak and SHA-256 precompiles: it fills the hash circuits (keccak 5,
+SHA-256 6, L1-messages hasher 13, code decommitter 3, decommitments sorter
+2). Its small variant (`HASH_GOLDEN`) is behind
+`test_artifacts/{keccak,sha256,hasher,decommitter,decommitts}_log*_*.json`
+(`tools/gen_hash_golden.py`).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 from .circuits.types import testing_geometry
 from .vm import isa as _isa
 from .vm.environment import (DefaultPrecompilesProcessor, InMemoryEventSink,
                              InMemoryStorage, SimpleDecommitter, SimpleMemory)
-from .vm.interpreter import run_vm
+from .vm.interpreter import deploy_contract, run_vm
 from .vm.state import BlockProperties, ProvingToolset, create_vm
 from .witness.tracer import WitnessTracer
 
@@ -34,6 +41,27 @@ MAIN_VM_CYCLES = 200  # cycles of the block = capacity of its one instance
 # smallest that holds the block's one storage cell of 21 queries (an instance
 # never splits a cell).
 SORTER_CAPACITY = dict(ram=8, events=3, storage=21, demux=6)
+# The small hash block of the golden artifacts: 2 rounds, each far-calling
+# the one callee (one fresh and one repeated decommitment), whose code is one
+# storage write, one L1 message and one add. It gives 2 keccak and 2 SHA-256
+# calls, 4 L1 messages (3 keccak-f blocks), a 3-word bytecode (2 SHA-256
+# blocks) and 2 decommitment queries.
+HASH_GOLDEN = dict(rounds=2, call_every=1, callee_reps=(1,))
+# Capacities per instance of the hash circuits of the golden artifacts; each
+# `*_geometry_for_capacity` of `prover/layers.py` turns them into the
+# geometries of the JAX package's own tests: KeccakGeometry(7) (4 slots),
+# Sha256Geometry(8) (3 slots), HasherGeometry(7) (4 slots),
+# DecommitterGeometry(8) (3 compressions), DecommittsGeometry(8, 1).
+HASH_CAPACITY = dict(keccak=4, sha256=3, hasher=4, decommitter=3,
+                     decommitts=8)
+# The hash block at the size `chip_smoke.py` proves it: 293 rounds (1,520
+# cycles: 293 keccak and 293 SHA-256 calls, 37 far calls of which 4 fresh,
+# 128 storage queries (91 writes, 37 reads of the deployer mapping) and 384
+# L1 messages), four callees of 1-4 repetitions.
+HASH_BLOCK = dict(rounds=293, call_every=8, callee_reps=(1, 2, 3, 4))
+HASH_CALLEE_BASE = 0xB0
+KECCAK_ADDRESS = DefaultPrecompilesProcessor.KECCAK_ADDRESS
+SHA256_ADDRESS = DefaultPrecompilesProcessor.SHA256_ADDRESS
 
 
 def loop_body(isa) -> List:
@@ -84,16 +112,56 @@ def main_vm_block(isa) -> List:
     return prog
 
 
-def trace_program(program: List, cycle_limit: int) -> WitnessTracer:
+def hash_callees(isa, callee_reps: Sequence[int]
+                 ) -> List[Tuple[int, List]]:
+    """(address, code) of the hash block's callees: callee k, at
+    0xB0 + k, repeats a storage write, an L1 message and an add
+    `callee_reps[k]` times, then returns."""
+    I = isa.imm
+    return [(HASH_CALLEE_BASE + k,
+             [isa.StorageWrite(I(100 + k), I(7 + k)),
+              isa.Event(I(k), I(k + 1), to_l1=True),
+              isa.BinOp("add", I(k), I(1), dst=1)] * reps + [isa.Ret()])
+            for k, reps in enumerate(callee_reps)]
+
+
+def hash_block(isa, rounds: int, call_every: int = 8,
+               callee_reps: Sequence[int] = (1, 2, 3, 4)) -> List:
+    """The entry code of the hash block: `rounds` rounds r of an add, a
+    keccak call on r1, a SHA-256 call on r2, an L1 message, and, when
+    r % call_every == 0, a far call to callee (r // call_every) % callees
+    whose exception handler is the next instruction; then Ret."""
+    I, R = isa.imm, isa.reg
+    prog: List = []
+    for r in range(rounds):
+        prog += [
+            isa.BinOp("add", R(1), I(1), dst=1),
+            isa.Precompile(KECCAK_ADDRESS, R(1), 2),
+            isa.Precompile(SHA256_ADDRESS, R(2), 3),
+            isa.Event(I(r), R(3), to_l1=True),
+        ]
+        if r % call_every == 0:
+            callee = HASH_CALLEE_BASE + (r // call_every) % len(callee_reps)
+            prog.append(isa.FarCall(I(callee),
+                                    exception_handler=len(prog) + 1))
+    return prog + [isa.Ret()]
+
+
+def trace_program(program: List, cycle_limit: int,
+                  contracts: Sequence[Tuple[int, List]] = ()
+                  ) -> WitnessTracer:
     """Run `program` (instructions of the port's `vm.isa`) to its end in a
-    fresh VM with in-memory storage, memory and event sink, and return the
-    tracer that recorded it."""
+    fresh VM with in-memory storage, memory and event sink, after deploying
+    each (address, code) of `contracts`, and return the tracer that
+    recorded it."""
     tracer = WitnessTracer(cycle_limit)
     tools = ProvingToolset(
         storage=InMemoryStorage(), memory=SimpleMemory(),
         decommitter=SimpleDecommitter(), event_sink=InMemoryEventSink(),
         precompiles=DefaultPrecompilesProcessor(), tracer=tracer,
         geometry=testing_geometry())
+    for address, code in contracts:
+        deploy_contract(tools, address, code)
     vm = create_vm(tools, BlockProperties(block_number=1), 0xAA, code_page=0)
     run_vm(vm, program, cycle_limit)
     if not vm.finished:
@@ -104,3 +172,13 @@ def trace_program(program: List, cycle_limit: int) -> WitnessTracer:
 def trace_main_vm_block() -> WitnessTracer:
     """The golden block, traced by the port's VM."""
     return trace_program(main_vm_block(_isa), 1000)
+
+
+def trace_hash_block(rounds: int, call_every: int = 8,
+                     callee_reps: Sequence[int] = (1, 2, 3, 4)
+                     ) -> WitnessTracer:
+    """The hash block, traced by the port's VM with its callees deployed
+    through `vm.interpreter.deploy_contract`."""
+    prog = hash_block(_isa, rounds, call_every, callee_reps)
+    return trace_program(prog, 8 * len(prog) + 64,
+                         hash_callees(_isa, callee_reps))

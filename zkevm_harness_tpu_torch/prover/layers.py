@@ -4,9 +4,11 @@ Counterpart of the JAX package's `prover/layers.py`, in part: for each
 ported base circuit type a `*_geometry_for_capacity`, a `*_setup_data`, a
 `prove_*_instance` and a `verify_*_instance`, with what they need
 (`SetupData`, the setup cache, the engine config and its override). Ported
-types: the MainVM (1), the log demuxer (4), the RAM permutation (8), the
-storage sorter (9) and the events / L1-messages sorter (11 / 12, one gate
-set). The other circuit types, the registries and the recursion /
+types: the MainVM (1), the decommitments sorter (2), the code decommitter
+(3), the log demuxer (4), the keccak (5) and SHA-256 (6) round functions,
+the RAM permutation (8), the storage sorter (9), the events / L1-messages
+sorter (11 / 12, one gate set) and the L1-messages hasher (13). The other
+circuit types, the registries and the recursion /
 compression layers are not ported yet; a circuit type ported later is added
 here, and the module imports only the circuits that exist in this package.
 
@@ -27,11 +29,16 @@ import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+from ..circuits import decommitter_circuit as cdcirc
+from ..circuits import decommitts_sorter_circuit as dscirc
 from ..circuits import events_sorter_circuit as ecirc
+from ..circuits import keccak_circuit as kcirc
+from ..circuits import linear_hasher_circuit as lhcirc
 from ..circuits import log_demux_circuit as dcirc
 from ..circuits import main_vm_circuit as mvcirc
 from ..circuits import narrow_region as nrr_mod
 from ..circuits import ram_permutation_circuit as rcirc
+from ..circuits import sha256_circuit as shcirc
 from ..circuits import storage_sorter_circuit as sscirc
 from ..circuits.types import (BASE_LAYER_PROOF_CONFIG, BaseLayerCircuitType,
                               ProofSystemConfig)
@@ -374,3 +381,241 @@ def verify_storage_instance(inst_w, challenges, capacity: int, proof,
     return _verify_checked(
         sd, sscirc.instance_public_inputs(geo, inst_w, challenges), proof, vk,
         device)
+
+
+# -- decommitments sorter (type 2) -------------------------------------------
+
+def decommitts_geometry_for_capacity(capacity: int
+                                     ) -> dscirc.DecommittsGeometry:
+    """Smallest decommitts-sorter trace covering `capacity` requests per
+    instance (3 full-width strips, one 32-row block per request)."""
+    log_n = 8
+    while True:
+        n = 1 << log_n
+        tiles = max(1, -(-capacity * dscirc.ROWS_PER_PERMUTATION // n))
+        geo = dscirc.DecommittsGeometry(log_n, tiles)
+        if geo.capacity >= capacity and geo.capacity + 1 <= n:
+            return geo
+        log_n += 1
+
+
+def decommitts_setup_data(capacity: int,
+                          psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+                          source=None, device=None
+                          ) -> Tuple[SetupData, dscirc.DecommittsGeometry]:
+    """`device=None` means the CUDA card (raises where there is none)."""
+    device = gl.resolve_device(device)
+    geo = decommitts_geometry_for_capacity(capacity)
+    sd = _cached_setup(
+        ("base_decommitts", geo.log_n, geo.tiles_per_queue),
+        lambda: dscirc.decommitts_ir(geo.log_n, geo.tiles_per_queue),
+        lambda ir, cfg, dev: dscirc.decommitts_setup(ir, geo, cfg,
+                                                     device=dev),
+        BaseLayerCircuitType.CODE_DECOMMITTMENTS_SORTER, source, device, psc)
+    return sd, geo
+
+
+def prove_decommitts_instance(inst_w, challenges, capacity: int,
+                              source=None, device=None):
+    """Prove ONE DecommittsCircuitInstance from the decomposer."""
+    device = gl.resolve_device(device)
+    sd, geo = decommitts_setup_data(capacity, source=source, device=device)
+    inst = dscirc.instance_inputs(inst_w, challenges)
+    return _prove_checked(
+        sd, lambda: dscirc.decommitts_witness(sd.ir, geo, inst,
+                                              device=device),
+        dscirc.instance_public_inputs(geo, inst_w, challenges), "decommitts",
+        device)
+
+
+def verify_decommitts_instance(inst_w, challenges, capacity: int, proof,
+                               vk=None, device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, geo = decommitts_setup_data(capacity, device=device)
+    return _verify_checked(
+        sd, dscirc.instance_public_inputs(geo, inst_w, challenges), proof,
+        vk, device)
+
+
+# -- keccak round function (type 5) ------------------------------------------
+
+def keccak_geometry_for_capacity(capacity: int) -> kcirc.KeccakGeometry:
+    """Smallest keccak trace covering `capacity` keccak-f invocations
+    (32 rows each)."""
+    log_n = 7
+    while (1 << log_n) // kcirc.ROWS_PER_INVOCATION < capacity:
+        log_n += 1
+    return kcirc.KeccakGeometry(log_n)
+
+
+def keccak_setup_data(capacity: int,
+                      psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+                      source=None, device=None
+                      ) -> Tuple[SetupData, kcirc.KeccakGeometry]:
+    device = gl.resolve_device(device)
+    geo = keccak_geometry_for_capacity(capacity)
+    sd = _cached_setup(
+        ("base_keccak", geo.log_n), lambda: kcirc.keccak_ir(geo.log_n),
+        lambda ir, cfg, dev: kcirc.keccak_setup(ir, geo, cfg, device=dev),
+        BaseLayerCircuitType.KECCAK_ROUND_FUNCTION, source, device, psc)
+    return sd, geo
+
+
+def prove_keccak_instance(inst_w, challenges_gammas, capacity: int,
+                          source=None, device=None):
+    """Prove ONE RoundFunctionInstanceWitness (type 5) from the decomposer."""
+    device = gl.resolve_device(device)
+    sd, geo = keccak_setup_data(capacity, source=source, device=device)
+    ch, gm = challenges_gammas
+    inst = kcirc.instance_inputs(inst_w.invocations, ch, gm, inst_w.acc_in,
+                                 inst_w.cnt_in)
+    return _prove_checked(
+        sd, lambda: kcirc.keccak_witness(sd.ir, geo, inst, device=device),
+        kcirc.expected_public_inputs(geo, inst), "keccak", device)
+
+
+def verify_keccak_instance(inst_w, challenges_gammas, capacity: int, proof,
+                           vk=None, device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, geo = keccak_setup_data(capacity, device=device)
+    return _verify_checked(
+        sd, kcirc.instance_public_inputs(geo, inst_w, challenges_gammas),
+        proof, vk, device)
+
+
+# -- SHA-256 round function (type 6) -----------------------------------------
+
+def sha256_geometry_for_capacity(capacity: int) -> shcirc.Sha256Geometry:
+    """Smallest sha256 trace covering `capacity` compressions (66 rows
+    each)."""
+    log_n = 8
+    while (1 << log_n) // shcirc.ROWS_PER_INVOCATION < capacity:
+        log_n += 1
+    return shcirc.Sha256Geometry(log_n)
+
+
+def sha256_setup_data(capacity: int,
+                      psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+                      source=None, device=None
+                      ) -> Tuple[SetupData, shcirc.Sha256Geometry]:
+    device = gl.resolve_device(device)
+    geo = sha256_geometry_for_capacity(capacity)
+    sd = _cached_setup(
+        ("base_sha256", geo.log_n), lambda: shcirc.sha256_ir(geo.log_n),
+        lambda ir, cfg, dev: shcirc.sha256_setup(ir, geo, cfg, device=dev),
+        BaseLayerCircuitType.SHA256_ROUND_FUNCTION, source, device, psc)
+    return sd, geo
+
+
+def prove_sha256_instance(inst_w, challenges_gammas, capacity: int,
+                          source=None, device=None):
+    """Prove ONE RoundFunctionInstanceWitness (type 6) from the decomposer."""
+    device = gl.resolve_device(device)
+    sd, geo = sha256_setup_data(capacity, source=source, device=device)
+    ch, gm = challenges_gammas
+    inst = shcirc.instance_inputs(inst_w.invocations, ch, gm, inst_w.acc_in,
+                                  inst_w.cnt_in)
+    return _prove_checked(
+        sd, lambda: shcirc.sha256_witness(sd.ir, geo, inst, device=device),
+        shcirc.expected_public_inputs(geo, inst), "sha256", device)
+
+
+def verify_sha256_instance(inst_w, challenges_gammas, capacity: int, proof,
+                           vk=None, device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, geo = sha256_setup_data(capacity, device=device)
+    return _verify_checked(
+        sd, shcirc.instance_public_inputs(geo, inst_w, challenges_gammas),
+        proof, vk, device)
+
+
+# -- L1-messages hasher (type 13) --------------------------------------------
+
+def hasher_geometry_for_capacity(capacity: int) -> lhcirc.HasherGeometry:
+    """Smallest hasher trace covering the keccak-f blocks of `capacity`
+    serialized L1 messages (88 bytes each, one pad block)."""
+    max_blocks = -(-(88 * capacity + 1) // 136)
+    log_n = 5
+    while (1 << log_n) // lhcirc.ROWS_PER_INVOCATION < max_blocks:
+        log_n += 1
+    return lhcirc.HasherGeometry(log_n)
+
+
+def hasher_setup_data(capacity: int,
+                      psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+                      source=None, device=None
+                      ) -> Tuple[SetupData, lhcirc.HasherGeometry]:
+    device = gl.resolve_device(device)
+    geo = hasher_geometry_for_capacity(capacity)
+    sd = _cached_setup(
+        ("base_hasher", geo.log_n), lambda: lhcirc.hasher_ir(geo.log_n),
+        lambda ir, cfg, dev: lhcirc.hasher_setup(ir, geo, cfg, device=dev),
+        BaseLayerCircuitType.L1_MESSAGES_HASHER, source, device, psc)
+    return sd, geo
+
+
+def prove_hasher_instance(inst, capacity: int, source=None, device=None):
+    """Prove ONE HasherInstanceInputs (type 13): in-circuit keccak256 of
+    the serialized L1-message stream."""
+    device = gl.resolve_device(device)
+    sd, geo = hasher_setup_data(capacity, source=source, device=device)
+    return _prove_checked(
+        sd, lambda: lhcirc.hasher_witness(sd.ir, geo, inst, device=device),
+        lhcirc.expected_public_inputs(geo, inst), "hasher", device)
+
+
+def verify_hasher_instance(inst, capacity: int, proof, vk=None,
+                           device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, geo = hasher_setup_data(capacity, device=device)
+    return _verify_checked(sd, lhcirc.expected_public_inputs(geo, inst),
+                           proof, vk, device)
+
+
+# -- code decommitter (type 3) -----------------------------------------------
+
+def code_decommitter_geometry_for_capacity(capacity: int
+                                           ) -> cdcirc.DecommitterGeometry:
+    """Smallest decommitter trace covering the sha256 blocks of `capacity`
+    32-byte bytecode words (+ padding block)."""
+    max_blocks = -(-(32 * capacity + 9) // 64)
+    log_n = 7
+    while (1 << log_n) // cdcirc.ROWS_PER_INVOCATION < max_blocks:
+        log_n += 1
+    return cdcirc.DecommitterGeometry(log_n)
+
+
+def code_decommitter_setup_data(
+        capacity: int, psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+        source=None, device=None
+        ) -> Tuple[SetupData, cdcirc.DecommitterGeometry]:
+    device = gl.resolve_device(device)
+    geo = code_decommitter_geometry_for_capacity(capacity)
+    sd = _cached_setup(
+        ("base_code_decommitter", geo.log_n),
+        lambda: cdcirc.decommitter_ir(geo.log_n),
+        lambda ir, cfg, dev: cdcirc.decommitter_setup(ir, geo, cfg,
+                                                      device=dev),
+        BaseLayerCircuitType.CODE_DECOMMITTER, source, device, psc)
+    return sd, geo
+
+
+def prove_code_decommitter_instance(inst, capacity: int, source=None,
+                                    device=None):
+    """Prove ONE DecommitterInstanceInputs (type 3): in-circuit sha256 of
+    one fresh bytecode."""
+    device = gl.resolve_device(device)
+    sd, geo = code_decommitter_setup_data(capacity, source=source,
+                                          device=device)
+    return _prove_checked(
+        sd, lambda: cdcirc.decommitter_witness(sd.ir, geo, inst,
+                                               device=device),
+        cdcirc.expected_public_inputs(geo, inst), "code_decommitter", device)
+
+
+def verify_code_decommitter_instance(inst, capacity: int, proof, vk=None,
+                                     device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, geo = code_decommitter_setup_data(capacity, device=device)
+    return _verify_checked(sd, cdcirc.expected_public_inputs(geo, inst),
+                           proof, vk, device)
