@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # full run: flagship 130 x 2^19, one
                                      # MainVM instance 764 x 2^16, the
                                      # block's RAM permutation, sorters and
-                                     # log demuxer, then the hash block's
-                                     # hash circuits at production geometry
+                                     # log demuxer, the hash block's hash
+                                     # circuits, then the whole block's 13
+                                     # base types at production geometry
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -59,7 +60,25 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                (type 1) instances; launch counters of this phase
   13. kernels_hashes  gl_mul and poseidon2_permute against their plain
                versions and timed at the hash path's shapes
-  14. kernels  one line {"kernels": [...], "helpers": [...]}
+  14. block_golden  the golden ecrecover (type 7, toy curve) and
+               storage-application (type 10, depth 4) proofs made on the
+               card equal test_artifacts/{ecrecover_toy,storage_app_d4}_*
+  15. block_artifacts, block  the whole block (golden.WHOLE_BLOCK: loop
+               bodies, hash rounds, far calls, 7 ecrecover calls; 880
+               cycles) through witness.oracle.create_artifacts_from_tracer at
+               GeometryConfig(): every one of the 13 base types has an
+               instance; the first of each is proved and verified at
+               production geometry through layers.prove_base_instance, its
+               public inputs the expected ones, its VK equal to the committed
+               one (setup/setup/base_layer/vk_N.json, and
+               test_artifacts/vk_{7,10}_production.json); type 7 (secp256k1,
+               u8 limbs) and type 10 (depth 256, the first query's read and
+               write paths) proved twice to equal bytes and tampered copies
+               rejected; the storage roots chain from the artifacts' initial
+               to their final root; launch counters of this phase
+  16. kernels_block  gl_mul and poseidon2_permute against their plain
+               versions and timed at the new circuits' shapes
+  17. kernels  one line {"kernels": [...], "helpers": [...]}
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises and
 the run exits non-zero.
@@ -153,6 +172,336 @@ def sass_counts(ck, out_dir):
             counts[func][op] = counts[func].get(op, 0) + 1
     return {f: dict(sorted(c.items(), key=lambda kv: -kv[1]), total=sum(
         c.values())) for f, c in counts.items()}
+
+
+def device_rows(fn, host_too=True):
+    """Run fn under torch.profiler; (wall seconds, device-side rows).
+    `host_too=False` records the device's activity alone, which keeps
+    the trace of a run with very many launches small."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host_too:
+        activities.insert(0, ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    # device-side rows only (kernels and copies): the operator rows carry
+    # the same device time a second time
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        raise SystemExit("profile: the trace shows no device time")
+    return wall_s, rows
+
+
+def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
+    """Phases `block_golden`, `block` and `kernels_block`: the golden
+    ecrecover (7) and storage-application (10) proofs on the card, then one
+    whole block through `create_artifacts_from_tracer` at `GeometryConfig()`
+    with one instance of each of the 13 base types proved and verified, then
+    K1 and K2 against their plain versions and timed at the new circuits'
+    shapes. Returns (the block path's launches, its kernel timings)."""
+    import torch
+
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import ecrecover_circuit as eccirc
+    from zkevm_harness_tpu_torch.circuits import ffarith as ffmod
+    from zkevm_harness_tpu_torch.circuits import \
+        storage_application_circuit as sappcirc
+    from zkevm_harness_tpu_torch.circuits.types import GeometryConfig
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import serde, tracing
+    from zkevm_harness_tpu_torch.witness import oracle
+
+    P = gl.P
+    scfg = pk.PlonkishConfig(**golden.MAIN_VM_CONFIG)
+    bcfg = pk.PlonkishConfig(rate=2, cap_size=16, num_queries=50,
+                             final_fri_size=512)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def golden_json(name):
+        with open(os.path.join(GOLDEN_DIR, name)) as f:
+            return json.load(f)
+
+    def same_proof(proof, name):
+        return json.loads(json.dumps(serde.proof_to_json(proof))) == \
+            golden_json(name)
+
+    # -- block_golden: the golden proofs of types 7 and 10 on the card ------
+    t0 = time.time()
+    golden_s = {}
+    eprog = eccirc.build_ecrecover_program(
+        eccirc.CurveParams(**golden.ecrecover_toy_curve()))
+    eir, esetup = ffmod.ff_setup(eprog.layout, scfg, device=dev)
+    h, r, s, q, ry = golden.ecrecover_toy_signature()
+    eproof, golden_s["ecrecover"] = timed(lambda: pk.prove(
+        eir, esetup, eccirc.ecrecover_witness(eprog, eir, h, r, s, q, ry,
+                                              device=dev), scfg, device=dev))
+    if esetup.vk() != golden_json("ecrecover_toy_vk.json") or \
+            not same_proof(eproof, "ecrecover_toy_proof.json"):
+        raise SystemExit("block_golden: the toy ecrecover VK or proof "
+                         "differs from the golden JSON")
+    if not pk.verify(eir, esetup.vk(), eproof, scfg, device=dev):
+        raise SystemExit("block_golden: the toy ecrecover proof does not "
+                         "verify")
+    del eprog, eir, esetup, eproof
+    path = sappcirc.PathInstanceInputs(
+        golden.STORAGE_APP_LEAF, list(golden.STORAGE_APP_PATH_BITS),
+        list(golden.STORAGE_APP_SIBLINGS))
+    stem = f"storage_app_d{golden.STORAGE_APP_DEPTH}"
+    with ly.engine_override(scfg):
+        sproof, golden_s["storage_application"] = timed(
+            lambda: ly.prove_storage_application_path(path, device=dev))
+        ssd, _ = ly.storage_application_setup_data(
+            depth=golden.STORAGE_APP_DEPTH, device=dev)
+        if ssd.vk != golden_json(stem + "_vk.json") or \
+                not same_proof(sproof, stem + "_proof.json"):
+            raise SystemExit("block_golden: the depth-4 storage-application "
+                             "VK or proof differs from the golden JSON")
+        if not ly.verify_storage_application_path(path, sproof, device=dev):
+            raise SystemExit("block_golden: the depth-4 path proof does not "
+                             "verify")
+    del ssd, sproof
+    ly._SETUP_CACHE.clear()
+    phase("block_golden", curve="toy (61-bit field, 64-bit scalars, u8)",
+          depth=golden.STORAGE_APP_DEPTH, vk_equal=True, proof_equal=True,
+          verify=True, seconds={k: round(v, 3) for k, v in golden_s.items()},
+          total_s=round(time.time() - t0, 3))
+
+    # -- block: the whole block, all 13 base types ------------------------------
+    geo = GeometryConfig()
+    (tracer, pre_state), trace_s = timed(
+        lambda: golden.trace_whole_block(**golden.WHOLE_BLOCK))
+    n_ecrecover = sum(1 for (_, q_, _d, _r) in tracer.precompile_calls
+                      if q_.address == golden.ECRECOVER_ADDRESS)
+    if n_ecrecover != golden.WHOLE_BLOCK["ecrecover_calls"]:
+        raise SystemExit(f"block: {n_ecrecover} ecrecover calls traced")
+    tracing.GLOBAL.enabled = True
+    tracing.GLOBAL.sync = torch.cuda.synchronize
+    tracing.GLOBAL.spans.clear()
+    ck.reset_launches()
+    t_path = time.time()
+    art, artifacts_s = timed(lambda: oracle.create_artifacts_from_tracer(
+        tracer, geo, initial_storage=pre_state, device=dev))
+    per_decomposer = {k.split(".", 1)[1]: round(v, 3) for k, v in
+                      tracing.GLOBAL.flat_durations().items()
+                      if k.startswith("oracle.")}
+    payloads = oracle.block_payloads(art, geo)
+    counts = {t: len(insts) for t, (insts, _c, _cap) in payloads.items()}
+    if sorted(counts) != list(range(1, 14)) or min(counts.values()) < 1:
+        raise SystemExit(f"block: not every base type has an instance: "
+                         f"{counts}")
+    phase("block_artifacts", block=golden.WHOLE_BLOCK,
+          cycles=tracer.cycle_counter, trace_s=round(trace_s, 3),
+          artifacts_s=round(artifacts_s, 3), per_decomposer_s=per_decomposer,
+          instances=counts,
+          per_circuit={t: a.num_instances for t, a in
+                       art.per_circuit.items()})
+    # the storage roots: the read path of the first query opens the initial
+    # root, each query's write path the root the next query's read opens,
+    # the last write the final root
+    sa = art.storage_application
+    depth = geo.storage_tree_depth
+    g10 = sappcirc.PathGeometry(depth=depth)
+    roots = [sa.initial_root]
+    for rd, wr in sa.instances:
+        if sappcirc.root_bytes(g10, sappcirc.expected_public_inputs(
+                g10, rd)) != roots[-1]:
+            raise SystemExit("block: a storage read path does not open the "
+                             "root before it")
+        roots.append(sappcirc.root_bytes(
+            g10, sappcirc.expected_public_inputs(g10, wr)))
+    if roots[-1] != sa.final_root:
+        raise SystemExit("block: the last storage write does not give the "
+                         "final root")
+
+    def prove_stages(durations):
+        return {k: round(v, 4) for k, v in durations.items()
+                if k.startswith("plonkish.prove")}
+
+    def bump_pi(p):
+        p.public_inputs[0] = (p.public_inputs[0] + 1) % P
+
+    def bump_ood(p):
+        c0, c1 = p.ood_witness[3]
+        p.ood_witness[3] = ((c0 + 1) % P, c1)
+
+    committed = {2, 3, 4, 6, 8, 9, 11, 12, 13}
+    per_type = {}
+    with ly.engine_override(bcfg):
+        for ctype in (7, 10, 1, 2, 3, 4, 5, 6, 8, 9, 11, 12, 13):
+            insts, ch, cap = payloads[ctype]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(ck.LAUNCHES)
+            sd, setup_s = timed(lambda: ly.base_setup_for_type(
+                ctype, geo, device=dev))
+            # 2-4, 6, 8, 9, 11-13 under setup/, 7 and 10 in test_artifacts/;
+            # 1 and 5 have no committed production VK
+            vk_file = (os.path.join(PROD_VK_DIR, f"vk_{ctype}.json")
+                       if ctype in committed else os.path.join(
+                           GOLDEN_DIR, f"vk_{ctype}_production.json")
+                       if ctype in (7, 10) else None)
+            rec = {"log_n": sd.ir.log_n, "width": sd.ir.num_witness,
+                   "const_cols": sd.ir.num_const,
+                   "gate_constraints": sd.ir.num_gate_constraints,
+                   "gate_degree": sd.ir.gate_degree,
+                   "lookup_sets": len(sd.ir.lookup_sets),
+                   "instances": len(insts),
+                   "vk_sha256": hashlib.sha256(",".join(
+                       str(int(v)) for v in sd.vk).encode()).hexdigest(),
+                   "setup_s": round(setup_s, 3)}
+            if vk_file is not None:  # a missing file fails the run
+                with open(vk_file) as f:
+                    if sd.vk != [int(v) for v in json.load(f)]:
+                        raise SystemExit(f"block: the production VK of type "
+                                         f"{ctype} differs from {vk_file}")
+                rec["vk_equal"] = os.path.relpath(
+                    vk_file, os.path.dirname(GOLDEN_DIR))
+            # type 10: the first query's read and write paths
+            todo = insts[:2] if ctype == 10 else insts[:1]
+            for k, inst in enumerate(todo):
+                prove = lambda: ly.prove_base_instance(  # noqa: E731
+                    ctype, inst, ch, cap, device=dev)
+                verify = lambda pr: ly.verify_base_instance(  # noqa: E731
+                    ctype, inst, ch, cap, pr, device=dev)
+                tracing.GLOBAL.spans.clear()
+                before_prove = dict(ck.LAUNCHES)
+                proof, prove_s = timed(prove)
+                spans = tracing.GLOBAL.flat_durations()
+                sub = {"prove_s": round(prove_s, 3),
+                       "witness_fill_s": round(spans.get("layers.witness",
+                                                         0.0), 3),
+                       "launches_one_prove": {
+                           kk: ck.LAUNCHES[kk] - before_prove[kk]
+                           for kk in ck.LAUNCHES},
+                       "stages_s": prove_stages(spans)}
+                ok, verify_s = timed(lambda: verify(proof))
+                if not ok:
+                    raise SystemExit(f"block: type {ctype} does not verify")
+                want = [int(v) % P for v in ly.real_base_instance_public_inputs(
+                    ctype, inst, ch, cap)]
+                if [int(v) for v in proof.public_inputs] != want:
+                    raise SystemExit(f"block: type {ctype}: public inputs are "
+                                     "not the expected ones")
+                sub.update(verify_s=round(verify_s, 3), public_inputs=len(want))
+                if ctype in (7, 10) and k == 0:
+                    again, warm_s = timed(prove)
+                    if serde.proof_to_json(again) != \
+                            serde.proof_to_json(proof):
+                        raise SystemExit(f"block: type {ctype}: a second "
+                                         "prove gave a different proof")
+                    del again
+                    bad_pi, bad_ood = copy.deepcopy(proof), copy.deepcopy(proof)
+                    bump_pi(bad_pi)
+                    bump_ood(bad_ood)
+                    tamper = {"public_input": not verify(bad_pi) and not
+                              pk.verify(sd.ir, sd.vk, bad_pi, sd.config,
+                                        device=dev),
+                              "ood_witness": not verify(bad_ood)}
+                    if not all(tamper.values()):
+                        raise SystemExit(f"block: type {ctype}: a tampered "
+                                         f"proof was accepted: {tamper}")
+                    sub.update(prove_warm_s=round(warm_s, 3),
+                               second_proof_equal=True,
+                               tampered_rejected=tamper)
+                    if args.profile:  # as in phase `sorters`
+                        counted = dict(ck.LAUNCHES)
+                        _, rows = device_rows(prove, host_too=False)
+                        ck.LAUNCHES.update(counted)
+                        busy_s = sum(r_[2] for r_ in rows) / 1e6
+                        sub.update(device_busy_s=round(busy_s, 3),
+                                   device_idle_share=round(
+                                       1 - busy_s / warm_s, 3))
+                if ctype == 10:
+                    # the read path opens the initial root, the write path
+                    # the root after the first query
+                    which = ("read", "write")[k]
+                    got = sappcirc.root_bytes(g10, proof.public_inputs)
+                    if got != roots[k]:
+                        raise SystemExit(f"block: the {which} path's root is "
+                                         "not the artifacts' root")
+                    sub["root"] = got.hex()
+                    rec[which] = sub
+                else:
+                    rec.update(sub)
+                del proof
+            rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                       launches={kk: ck.LAUNCHES[kk] - before[kk]
+                                 for kk in ck.LAUNCHES}, verify=True,
+                       public_inputs_as_expected=True)
+            per_type[ctype] = rec
+            del sd
+            ly._SETUP_CACHE.clear()
+    launches_block = dict(ck.LAUNCHES)
+    tracing.GLOBAL.enabled = False
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches_block[name] <= 0:
+            raise SystemExit(f"block path launched {name} no time")
+    torch.cuda.empty_cache()
+    phase("block", block=golden.WHOLE_BLOCK,
+          config={"rate": bcfg.rate, "cap_size": bcfg.cap_size,
+                  "num_queries": bcfg.num_queries,
+                  "final_fri_size": bcfg.final_fri_size},
+          initial_root=sa.initial_root.hex(), final_root=sa.final_root.hex(),
+          storage_queries=len(sa.instances),
+          path_s=round(time.time() - t_path, 3), launches=launches_block,
+          types=per_type)
+
+    # -- kernels_block: K1 and K2 at the new circuits' shapes -------------------
+    # the stacked (columns, rows) of a type-7 (286 x 2^16) and a type-10
+    # (2,609 x 2^12) coset for the multiply; the 2^17 leaves of the type-7
+    # rate-2 commitment for the permutation
+    timing_block = {}
+    for label, shape in (("gl_mul_ecrecover", (286, 1 << 16)),
+                         ("gl_mul_storage_application", (2609, 1 << 12))):
+        ta, tb = rand_field(shape), rand_field(shape)
+        errs["gl_mul"] = max(errs["gl_mul"], check_equal(
+            "gl_mul block shape", ck.gl_mul(ta, tb), ck.gl_mul_plain(ta, tb)))
+        timing_block[label] = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: ck.gl_mul(ta, tb), 2, 10),
+            "plain_ms": cuda_ms(lambda: ck.gl_mul_plain(ta, tb), 1, 3),
+            "bytes": 3 * 8 * ta.numel(), "ops": ta.numel() * OPS_MUL}
+        del ta, tb
+    states = 1 << 17
+    ts = rand_field((states, 12))
+    errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
+        "poseidon2 block shape", ck.poseidon2_permute(ts),
+        ck.poseidon2_permute_plain(ts)))
+    timing_block["poseidon2_permute"] = {
+        "shape": [states, 12],
+        "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), 2, 10),
+        "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+        "bytes": 2 * 8 * 12 * states,
+        "ops": states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
+    del ts
+    for t in timing_block.values():
+        by = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+        op = t["ops"] / PEAK_INT_ALU_PER_S * 1e3
+        t["bound_ms"] = max(by, op)
+        t["bound_by"] = "bytes" if by >= op else "operations"
+    phase("kernels_block", tolerance=0,
+          max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
+          timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                      for kk, vv in t.items()}
+                  for k, t in timing_block.items()})
+    return launches_block, timing_block
 
 
 def main(argv=None) -> int:
@@ -721,30 +1070,6 @@ def main(argv=None) -> int:
           tampered_rejected=mv_rejected, launches=launches_mv,
           launches_one_prove=launches_one_prove, stages_s=mv_stages,
           stages_warm_s=mv_stages_warm)
-
-    def device_rows(fn, host_too=True):
-        """Run fn under torch.profiler; (wall seconds, device-side rows).
-        `host_too=False` records the device's activity alone, which keeps
-        the trace of a run with very many launches small."""
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CUDA]
-        if host_too:
-            activities.insert(0, ProfilerActivity.CPU)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        with profile(activities=activities) as prof:
-            fn()
-            torch.cuda.synchronize()
-        wall_s = time.time() - t0
-        # device-side rows only (kernels and copies): the operator rows carry
-        # the same device time a second time
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            raise SystemExit("profile: the trace shows no device time")
-        return wall_s, rows
 
     # -- 9. the golden block's memory and log circuits on the card ------------
     # the 200-cycle golden block: its first instance of each circuit at the
@@ -1395,6 +1720,10 @@ def main(argv=None) -> int:
           max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
           timing=rounded(timing_hash))
 
+    # -- 15-17. the whole block: types 7 and 10, all 13 base types -----------
+    launches_block, timing_block = block_phases(
+        args, dev, phase, rand_field, check_equal, cuda_ms, errs)
+
     # -- optional: device busy share of one more prove -----------------------
     if args.profile:
         witness = fl.flagship_witness(ir, seed=0, device=dev)
@@ -1496,7 +1825,8 @@ def main(argv=None) -> int:
         t = timing[name]
         by_path = {"flagship": launches[name], "main_vm": launches_mv[name],
                    "sorters": launches_srt[name],
-                   "hashes": launches_hash[name]}
+                   "hashes": launches_hash[name],
+                   "block": launches_block[name]}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -1513,6 +1843,10 @@ def main(argv=None) -> int:
         if hash_keys:
             out["hashes"] = {h: {k: timing_hash[h][k] for k in keys}
                              for h in hash_keys}
+        block_keys = [k for k in timing_block if k.startswith(name)]
+        if block_keys:
+            out["block"] = {b: {k: timing_block[b][k] for k in keys}
+                            for b in block_keys}
         if name + "_one_state" in timing_mv:
             out["one_state"] = {k: timing_mv[name + "_one_state"][k]
                                 for k in keys}

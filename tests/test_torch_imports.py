@@ -68,7 +68,13 @@ def test_every_module_imports_without_jax():
                      "circuits.sha256_circuit",
                      "circuits.linear_hasher_circuit",
                      "circuits.decommitter_circuit",
-                     "circuits.decommitts_sorter_circuit"):
+                     "circuits.decommitts_sorter_circuit",
+                     "prover.satisfy", "circuits.ffarith",
+                     "circuits.ecrecover_circuit",
+                     "circuits.storage_application_circuit",
+                     "witness.ecrecover_witness", "witness.tree",
+                     "witness.storage_application", "witness.recursion",
+                     "witness.callstack_sim", "witness.vm_instance"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 
@@ -263,6 +269,59 @@ def test_hash_entry_points_raise_without_cuda():
                      sart.instances[0], sart.challenges, 8),
                  lambda: ly.verify_decommitts_instance(
                      sart.instances[0], sart.challenges, 8, None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_block_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import ecrecover_circuit as ecc
+    from zkevm_harness_tpu_torch.circuits import ffarith as ff
+    from zkevm_harness_tpu_torch.circuits import \
+        storage_application_circuit as sac
+    from zkevm_harness_tpu_torch.circuits.types import testing_geometry
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.witness import callstack_sim, oracle
+    from zkevm_harness_tpu_torch.witness import recursion
+    from zkevm_harness_tpu_torch.witness.ecrecover_witness import \
+        ecrecover_decompose
+
+    tracer, pre = golden.trace_whole_block(**golden.WHOLE_GOLDEN)
+    cfg = pk.PlonkishConfig(**golden.MAIN_VM_CONFIG)
+    eprog = ecc.build_ecrecover_program(
+        ecc.CurveParams(**golden.ecrecover_toy_curve()))
+    ir = ff.layout_ir(eprog.layout)
+    h, r, s, q, ry = golden.ecrecover_toy_signature()
+    geo = sac.PathGeometry(golden.STORAGE_APP_DEPTH)
+    path = sac.PathInstanceInputs(golden.STORAGE_APP_LEAF,
+                                  list(golden.STORAGE_APP_PATH_BITS),
+                                  list(golden.STORAGE_APP_SIBLINGS))
+    inv = ecrecover_decompose(golden.ecrecover_inputs(1), 7)[0]
+    for call in (lambda: oracle.create_artifacts_from_tracer(
+                     tracer, testing_geometry(), initial_storage=pre),
+                 lambda: ff.ff_setup(eprog.layout, cfg),
+                 lambda: ff.ff_witness(eprog.layout, ir, {}),
+                 lambda: ecc.ecrecover_witness(eprog, ir, h, r, s, q, ry),
+                 lambda: sac.path_setup(sac.path_ir(geo), geo, cfg),
+                 lambda: sac.path_witness(sac.path_ir(geo), geo, path),
+                 lambda: callstack_sim.simulate_callstack(tracer),
+                 lambda: recursion.RecursionQueueSimulator(),
+                 lambda: recursion.commit_vk([1, 2, 3]),
+                 lambda: ly.ecrecover_setup_data(),
+                 lambda: ly.prove_ecrecover_invocation(inv.invocations[0]),
+                 lambda: ly.verify_ecrecover_invocation(inv.invocations[0],
+                                                        None),
+                 lambda: ly.storage_application_setup_data(depth=4),
+                 lambda: ly.prove_storage_application_path(path),
+                 lambda: ly.verify_storage_application_path(path, None),
+                 lambda: ly.prove_storage_application_query((path, path)),
+                 lambda: ly.base_setup_for_type(10, testing_geometry()),
+                 lambda: ly.prove_base_instance(10, path, None, 2),
+                 lambda: ly.verify_base_instance(10, path, None, 2, None),
+                 lambda: ly.create_base_layer_setup_data(1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

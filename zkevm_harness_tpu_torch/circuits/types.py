@@ -135,6 +135,34 @@ class GeometryConfig:
     storage_tree_depth: int = 256
 
 
+# the GeometryConfig field that caps one instance of each base type
+_BASE_CAPACITY_FIELD = {
+    BaseLayerCircuitType.MAIN_VM: "cycles_per_vm_snapshot",
+    BaseLayerCircuitType.CODE_DECOMMITTMENTS_SORTER:
+        "cycles_per_code_decommitter_sorter",
+    BaseLayerCircuitType.CODE_DECOMMITTER: "cycles_per_code_decommitter",
+    BaseLayerCircuitType.LOG_DEMUXER: "cycles_per_log_demuxer",
+    BaseLayerCircuitType.KECCAK_ROUND_FUNCTION: "cycles_per_keccak256_circuit",
+    BaseLayerCircuitType.SHA256_ROUND_FUNCTION: "cycles_per_sha256_circuit",
+    BaseLayerCircuitType.ECRECOVER: "cycles_per_ecrecover_circuit",
+    BaseLayerCircuitType.RAM_PERMUTATION: "cycles_per_ram_permutation",
+    BaseLayerCircuitType.STORAGE_SORTER: "cycles_per_storage_sorter",
+    BaseLayerCircuitType.STORAGE_APPLICATION:
+        "cycles_per_storage_application",
+    BaseLayerCircuitType.EVENTS_SORTER:
+        "cycles_per_events_or_l1_messages_sorter",
+    BaseLayerCircuitType.L1_MESSAGES_SORTER:
+        "cycles_per_events_or_l1_messages_sorter",
+    BaseLayerCircuitType.L1_MESSAGES_HASHER:
+        "limit_for_l1_messages_pudata_hasher",
+}
+
+
+def base_capacity(geometry: GeometryConfig, ctype: int) -> int:
+    """The per-instance capacity of base type `ctype` at `geometry`."""
+    return getattr(geometry, _BASE_CAPACITY_FIELD[ctype])
+
+
 def testing_geometry() -> GeometryConfig:
     """Tiny capacities for fast tests (cf. run_manually.rs:184-200)."""
     return GeometryConfig(

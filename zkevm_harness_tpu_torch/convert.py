@@ -4,10 +4,12 @@ The JAX package stores a field element as a (lo, hi) pair of uint32 planes;
 the port stores one int64 holding the u64 bit pattern. This module converts
 field arrays, a `PlonkishSetup` and a `PlonkishProof` in both directions.
 MainVM instances, artifacts and a tracer's queries, and the instance payloads
-of the hash circuits, are plain Python ints (or object arrays of them) in
-dataclasses of the same field names in both packages, so their carrier is a
-field-by-field rebuild into the port's classes, or into the classes a caller
-names. It imports neither `jax` nor the JAX package: the caller hands over numpy arrays
+of the hash and storage-application circuits, are plain Python ints (or
+object arrays of them) in dataclasses of the same field names in both
+packages, so their carrier is a field-by-field rebuild into the port's
+classes, or into the classes a caller names. A JAX dense copy permutation
+becomes the port's `CopyWiring`, and a block's artifacts of either package
+become one JSON summary (`block_artifacts_summary`). It imports neither `jax` nor the JAX package: the caller hands over numpy arrays
 (`np.asarray(gf.lo)`, `np.asarray(gf.hi)`) and gets numpy arrays back, so the
 tests can run both packages on the same data.
 """
@@ -15,6 +17,7 @@ tests can run both packages on the same data.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +28,7 @@ from .ops import merkle as mk
 from .prover import plonkish as pk
 from .circuits import decommitter_circuit as dcc
 from .circuits import linear_hasher_circuit as lhc
+from .circuits import storage_application_circuit as sac
 from .utils import serde
 from .witness import main_vm as wmv
 from .witness import precompile_circuits as wpc
@@ -198,3 +202,121 @@ def decommitts_instance_from(inst, cls=wsort.DecommittsCircuitInstance):
     """A decommitments-sorter `DecommittsCircuitInstance` of either package
     as `cls` (the port's by default)."""
     return _rebuild(cls, inst)
+
+
+# -- ecrecover and storage application --------------------------------------
+
+def copy_wiring_from_dense(perm) -> pk.CopyWiring:
+    """The JAX package's dense (num_witness, n, 2) successor array of a copy
+    permutation (an `FFLayout.permutation`, the result of `apply_copy_cycles`)
+    as the port's `CopyWiring`: the moved cells and their successors, flat
+    col * n + row, in cell order."""
+    perm = np.asarray(perm)
+    width, n, _ = perm.shape
+    flat = perm[:, :, 0].astype(np.int64) * n + perm[:, :, 1]
+    ident = np.arange(width * n, dtype=np.int64).reshape(width, n)
+    moved = flat != ident
+    return pk.CopyWiring(ident[moved], flat[moved])
+
+
+def path_inputs_from(inst, cls=sac.PathInstanceInputs):
+    """A storage-application `PathInstanceInputs` of either package as `cls`
+    (the port's by default)."""
+    return cls(leaf_preimage=bytes(inst.leaf_preimage),
+               path_bits=[int(b) for b in inst.path_bits],
+               siblings=[bytes(x) for x in inst.siblings])
+
+
+# -- block artifacts --------------------------------------------------------
+
+def _ints(v):
+    """Nested lists / tuples / arrays / tensors of integers as nested lists
+    of Python ints (bools as 0 / 1, bytes as hex)."""
+    if isinstance(v, (bytes, bytearray)):
+        return bytes(v).hex()
+    if isinstance(v, torch.Tensor):
+        return [int(x) for x in gl.to_u64(v).ravel()]
+    if isinstance(v, np.ndarray):
+        return [_ints(x) for x in v.tolist()] if v.ndim else int(v)
+    if isinstance(v, (list, tuple)):
+        return [_ints(x) for x in v]
+    if hasattr(v, "tolist"):      # an array of another library
+        return _ints(np.asarray(v))
+    return int(v)
+
+
+def _log_query(q):
+    return [int(getattr(q, f)) for f in (
+        "timestamp", "tx_number_in_block", "aux_byte", "shard_id", "address",
+        "key", "read_value", "written_value", "rw_flag", "rollback",
+        "is_service")]
+
+
+def _queue(q):
+    return {"length": len(q), "tail": [int(v) for v in q.tail]}
+
+
+def block_artifacts_summary(art, geometry, public_inputs) -> Dict:
+    """What `create_artifacts_from_tracer` of either package made of a block,
+    as JSON-ready nested lists of ints: the queues' lengths and tails, the
+    demuxed and deduplicated streams, the instance counts and recursion
+    queues, the callstack sponge witness, the storage roots and paths, the
+    ecrecover invocations, and per base circuit type the decomposer's
+    instance count, challenges and every instance's expected public inputs
+    (`public_inputs` is that package's
+    `layers.real_base_instance_public_inputs`). Equal artifacts give equal
+    summaries."""
+    from .witness.oracle import block_payloads
+    cs = art.callstack_witness
+    sa = art.storage_application
+    out = {
+        "log_queue": _queue(art.log_queue),
+        "memory_queue": _queue(art.memory_queue),
+        "sorted_memory_queue": _queue(art.sorted_memory_queue),
+        "demuxed": {k: [[int(c)] + _log_query(q) for c, q in v]
+                    for k, v in sorted(art.demuxed.items())},
+        "deduplicated": {
+            "storage": [_log_query(q) for q in art.deduplicated_storage],
+            "events": [_log_query(q) for q in art.deduplicated_events],
+            "l1": [_log_query(q) for q in art.deduplicated_l1_messages]},
+        "per_circuit": {str(t): [a.num_instances, a.capacity]
+                        for t, a in sorted(art.per_circuit.items())},
+        "recursion_queues": {str(t): _queue(q) for t, q in
+                             sorted(art.recursion_queues.items())},
+        "callstack": {
+            "ops": [[o.cycle, int(o.is_push), o.depth_before,
+                     _ints(o.encoding), _ints(o.state_before),
+                     _ints(o.state_after)] for o in cs.ops],
+            "boundaries": [[b.cycle, int(b.is_push), b.depth,
+                            b.state.forward_length,
+                            _ints(b.state.forward_tail),
+                            b.state.rollback_length]
+                           for b in cs.log_boundaries],
+            "final_state": _ints(cs.final_state),
+            "max_depth": cs.max_depth},
+        "storage_application": {
+            "initial_root": sa.initial_root.hex(),
+            "final_root": sa.final_root.hex(),
+            "paths": [[p.leaf_preimage.hex(), _ints(p.path_bits),
+                       hashlib.sha256(b"".join(p.siblings)).hexdigest()]
+                      for pair in sa.instances for p in pair],
+            "instances": [[w.initial_root.hex(), w.final_root.hex(),
+                           w.initial_next_enumeration_index,
+                           w.final_next_enumeration_index, len(w.queries)]
+                          for w in sa.query_witnesses]},
+        "ecrecover": [[w.index, int(w.start_flag), int(w.completion_flag),
+                       [[inv.msg_hash.hex(), inv.v, inv.r, inv.s,
+                         _ints(inv.recovered_point or ()),
+                         (inv.address or b"").hex(), int(inv.success)]
+                        for inv in w.invocations]] for w in art.ecrecover],
+        "types": {},
+    }
+    for ctype, (insts, challenges, cap) in sorted(
+            block_payloads(art, geometry).items()):
+        out["types"][str(ctype)] = {
+            "instances": len(insts), "capacity": cap,
+            "challenges": _ints(challenges) if challenges is not None
+            else None,
+            "public_inputs": [_ints(public_inputs(ctype, w, challenges, cap))
+                              for w in insts]}
+    return out

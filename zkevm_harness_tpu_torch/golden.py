@@ -15,13 +15,24 @@ SHA-256 6, L1-messages hasher 13, code decommitter 3, decommitments sorter
 2). Its small variant (`HASH_GOLDEN`) is behind
 `test_artifacts/{keccak,sha256,hasher,decommitter,decommitts}_log*_*.json`
 (`tools/gen_hash_golden.py`).
+
+The whole block (`whole_block`) adds the MainVM loop body and ecrecover calls
+to the hash block's rounds and fills all 13 base circuit types through
+`witness.oracle.create_artifacts_from_tracer`. The golden ecrecover (toy
+curve) and storage-application (depth 4) instances, the small whole block's
+artifacts and the production VKs of types 7 and 10 are behind
+`test_artifacts/{ecrecover_toy,storage_app_d4}_*.json`,
+`whole_block_golden.json` and `vk_{7,10}_production.json`
+(`tools/gen_block_golden.py`).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import hashlib
+from typing import Dict, List, Sequence, Tuple
 
 from .circuits.types import testing_geometry
+from .utils import secp256k1 as _ec
 from .vm import isa as _isa
 from .vm.environment import (DefaultPrecompilesProcessor, InMemoryEventSink,
                              InMemoryStorage, SimpleDecommitter, SimpleMemory)
@@ -62,6 +73,74 @@ HASH_BLOCK = dict(rounds=293, call_every=8, callee_reps=(1, 2, 3, 4))
 HASH_CALLEE_BASE = 0xB0
 KECCAK_ADDRESS = DefaultPrecompilesProcessor.KECCAK_ADDRESS
 SHA256_ADDRESS = DefaultPrecompilesProcessor.SHA256_ADDRESS
+ECRECOVER_ADDRESS = DefaultPrecompilesProcessor.ECRECOVER_ADDRESS
+# The whole block (`whole_block`) fills all 13 base circuit types: the hash
+# block's rounds, each after a `loop_body`, then ecrecover calls. At
+# `WHOLE_BLOCK` and `GeometryConfig()` every type has at least one
+# instance, and type 7 one full instance (7 calls, its capacity);
+# `WHOLE_GOLDEN` is its small variant at `testing_geometry()`, behind
+# `test_artifacts/whole_block_golden.json` (`tools/gen_block_golden.py`):
+# one round, whose two L1 messages (the round's and the callee's) are all
+# that geometry's single hasher instance takes.
+WHOLE_BLOCK = dict(rounds=64, call_every=8, callee_reps=(1, 2, 3, 4),
+                   ecrecover_calls=7)
+WHOLE_GOLDEN = dict(rounds=1, call_every=1, callee_reps=(1,),
+                    ecrecover_calls=1)
+ECRECOVER_HEAP = 16          # heap word of the first ecrecover input
+ECRECOVER_KEY = 0xA11CE      # signing key of call i: ECRECOVER_KEY + i
+ECRECOVER_NONCE = 0xB0B123   # its nonce: ECRECOVER_NONCE + 7 i
+# The golden type-7 instance: the recovery equation on a 61-bit toy curve
+# y^2 = x^3 + 7 over 2^61 - 1 at 64-bit scalars and u8 limbs (the JAX
+# package's own test curve), its generator the first point with x >= 3;
+# the signature is that of key 3 with R = G and h = 0x1234.
+ECRECOVER_TOY_P = (1 << 61) - 1
+ECRECOVER_TOY_KEY = 3
+ECRECOVER_TOY_HASH = 0x1234
+# The golden type-10 instance: one depth-4 path (the JAX package's test
+# path): leaf enumeration index 7, its value, the path bits and siblings.
+STORAGE_APP_DEPTH = 4
+STORAGE_APP_LEAF = ((7).to_bytes(8, "big")
+                    + (0xBEEF_0000_1234).to_bytes(32, "big"))
+STORAGE_APP_PATH_BITS = (1, 0, 1, 1)
+STORAGE_APP_SIBLINGS = tuple(hashlib.blake2s(bytes([i])).digest()
+                             for i in range(4))
+
+
+def ecrecover_toy_curve() -> dict:
+    """The toy curve as `CurveParams` fields."""
+    p = ECRECOVER_TOY_P
+    x = 3
+    while True:
+        v = (x * x * x + 7) % p
+        y = pow(v, (p + 1) // 4, p)
+        if y * y % p == v:
+            return dict(p=p, b=7, g=(x, y), scalar_bits=64, limb_bits=8)
+        x += 1
+
+
+def ecrecover_toy_signature() -> Tuple[int, int, int, Tuple[int, int], int]:
+    """(h, r, s, Q, y of R) on the toy curve with s*R == r*Q + h*G over the
+    integers: R = G, Q = 3 G, s = r * 3 + h."""
+    c = ecrecover_toy_curve()
+    p, g = c["p"], c["g"]
+
+    def add(p1, p2):
+        if p1 is None:
+            return p2
+        (x1, y1), (x2, y2) = p1, p2
+        if p1 == p2:
+            lam = 3 * x1 * x1 * pow(2 * y1, p - 2, p) % p
+        else:
+            lam = (y2 - y1) * pow(x2 - x1, p - 2, p) % p
+        x3 = (lam * lam - x1 - x2) % p
+        return (x3, (lam * (x1 - x3) - y1) % p)
+
+    q = None
+    for _ in range(ECRECOVER_TOY_KEY):
+        q = add(q, g)
+    r = g[0]
+    return (ECRECOVER_TOY_HASH, r, r * ECRECOVER_TOY_KEY + ECRECOVER_TOY_HASH,
+            q, g[1])
 
 
 def loop_body(isa) -> List:
@@ -125,16 +204,16 @@ def hash_callees(isa, callee_reps: Sequence[int]
             for k, reps in enumerate(callee_reps)]
 
 
-def hash_block(isa, rounds: int, call_every: int = 8,
-               callee_reps: Sequence[int] = (1, 2, 3, 4)) -> List:
-    """The entry code of the hash block: `rounds` rounds r of an add, a
-    keccak call on r1, a SHA-256 call on r2, an L1 message, and, when
+def _hash_rounds(isa, rounds: int, call_every: int,
+                 callee_reps: Sequence[int], prefix=()) -> List:
+    """`rounds` rounds r of the instructions `prefix`, an add, a keccak call
+    on r1, a SHA-256 call on r2, an L1 message, and, when
     r % call_every == 0, a far call to callee (r // call_every) % callees
-    whose exception handler is the next instruction; then Ret."""
+    whose exception handler is the next instruction."""
     I, R = isa.imm, isa.reg
     prog: List = []
     for r in range(rounds):
-        prog += [
+        prog += list(prefix) + [
             isa.BinOp("add", R(1), I(1), dst=1),
             isa.Precompile(KECCAK_ADDRESS, R(1), 2),
             isa.Precompile(SHA256_ADDRESS, R(2), 3),
@@ -144,6 +223,50 @@ def hash_block(isa, rounds: int, call_every: int = 8,
             callee = HASH_CALLEE_BASE + (r // call_every) % len(callee_reps)
             prog.append(isa.FarCall(I(callee),
                                     exception_handler=len(prog) + 1))
+    return prog
+
+
+def hash_block(isa, rounds: int, call_every: int = 8,
+               callee_reps: Sequence[int] = (1, 2, 3, 4)) -> List:
+    """The entry code of the hash block: `rounds` rounds r of an add, a
+    keccak call on r1, a SHA-256 call on r2, an L1 message, and, when
+    r % call_every == 0, a far call to callee (r // call_every) % callees
+    whose exception handler is the next instruction; then Ret."""
+    return _hash_rounds(isa, rounds, call_every, callee_reps) + [isa.Ret()]
+
+
+def ecrecover_inputs(count: int) -> List[bytes]:
+    """`count` 128-byte ecrecover inputs h || v || r || s (v the parity of
+    R, 0 or 1), each a valid secp256k1 signature of a fixed hash by a fixed
+    key and nonce."""
+    out = []
+    for i in range(count):
+        msg = _ec.keccak256(b"whole block ecrecover %d" % i)
+        v, r, s = _ec.sign(msg, ECRECOVER_KEY + i, ECRECOVER_NONCE + 7 * i)
+        out.append(msg + b"".join(x.to_bytes(32, "big") for x in (v, r, s)))
+    return out
+
+
+def whole_block(isa, rounds: int, call_every: int = 8,
+                callee_reps: Sequence[int] = (1, 2, 3, 4),
+                ecrecover_calls: int = 7) -> List:
+    """The entry code of the whole block, which fills all 13 base circuit
+    types: `rounds` rounds of `loop_body` followed by the hash block's round
+    (keccak and SHA-256 calls, an L1 message, a far call every
+    `call_every` rounds), then `ecrecover_calls` ecrecover calls, each
+    writing h || v || r || s as four heap words from `ECRECOVER_HEAP` and
+    calling the precompile on them; then Ret."""
+    I = isa.imm
+    prog = _hash_rounds(isa, rounds, call_every, callee_reps,
+                        prefix=loop_body(isa))
+    for i, data in enumerate(ecrecover_inputs(ecrecover_calls)):
+        base = ECRECOVER_HEAP + 4 * i
+        for k in range(4):
+            prog.append(isa.HeapWrite(
+                I(base + k), I(int.from_bytes(data[32 * k:32 * k + 32],
+                                              "big"))))
+        prog.append(isa.Precompile(ECRECOVER_ADDRESS, I(base), 7,
+                                   data_words=4))
     return prog + [isa.Ret()]
 
 
@@ -154,6 +277,12 @@ def trace_program(program: List, cycle_limit: int,
     fresh VM with in-memory storage, memory and event sink, after deploying
     each (address, code) of `contracts`, and return the tracer that
     recorded it."""
+    return _run(program, cycle_limit, contracts)[0]
+
+
+def _run(program: List, cycle_limit: int,
+         contracts: Sequence[Tuple[int, List]]
+         ) -> Tuple[WitnessTracer, Dict[Tuple[int, int, int], int]]:
     tracer = WitnessTracer(cycle_limit)
     tools = ProvingToolset(
         storage=InMemoryStorage(), memory=SimpleMemory(),
@@ -162,11 +291,25 @@ def trace_program(program: List, cycle_limit: int,
         geometry=testing_geometry())
     for address, code in contracts:
         deploy_contract(tools, address, code)
+    pre_state = dict(tools.storage.inner)
     vm = create_vm(tools, BlockProperties(block_number=1), 0xAA, code_page=0)
     run_vm(vm, program, cycle_limit)
     if not vm.finished:
         raise RuntimeError(f"program still running after {cycle_limit} cycles")
-    return tracer
+    return tracer, pre_state
+
+
+def trace_whole_block(rounds: int, call_every: int = 8,
+                      callee_reps: Sequence[int] = (1, 2, 3, 4),
+                      ecrecover_calls: int = 7
+                      ) -> Tuple[WitnessTracer, Dict[Tuple[int, int, int],
+                                                      int]]:
+    """(tracer, pre-state) of the whole block run by the port's VM after
+    its callees are deployed: the pre-state is the storage after the
+    deployment and before the run, `{(shard, address, key): value}`, the
+    `initial_storage` of `witness.oracle.create_artifacts_from_tracer`."""
+    prog = whole_block(_isa, rounds, call_every, callee_reps, ecrecover_calls)
+    return _run(prog, 8 * len(prog) + 64, hash_callees(_isa, callee_reps))
 
 
 def trace_main_vm_block() -> WitnessTracer:

@@ -1,16 +1,20 @@
 """Typed per-layer prover surface: setup/prove/verify per circuit type.
 
-Counterpart of the JAX package's `prover/layers.py`, in part: for each
-ported base circuit type a `*_geometry_for_capacity`, a `*_setup_data`, a
-`prove_*_instance` and a `verify_*_instance`, with what they need
-(`SetupData`, the setup cache, the engine config and its override). Ported
-types: the MainVM (1), the decommitments sorter (2), the code decommitter
-(3), the log demuxer (4), the keccak (5) and SHA-256 (6) round functions,
-the RAM permutation (8), the storage sorter (9), the events / L1-messages
-sorter (11 / 12, one gate set) and the L1-messages hasher (13). The other
-circuit types, the registries and the recursion /
-compression layers are not ported yet; a circuit type ported later is added
-here, and the module imports only the circuits that exist in this package.
+Counterpart of the JAX package's `prover/layers.py`, in part: for each of
+the 13 base circuit types a `*_setup_data`, a prove and a verify function
+(`prove_*_instance`, type 7 `prove_ecrecover_invocation`, type 10
+`prove_storage_application_path` and its read + write `*_query` pair), with
+what they need (`SetupData`, the setup cache, the engine config and its
+override); the base layer's typed surface (`CircuitFactory`,
+`BASE_REGISTRY` — empty, as in the JAX package, since every base type has
+its real circuit — `create_base_layer_setup_data`,
+`prove_base_layer_circuit`, `verify_base_layer_proof`,
+`REAL_BASE_CIRCUITS`, `real_base_instance_public_inputs`,
+`base_setup_for_type`); and `prove_base_instance` / `verify_base_instance`,
+the JAX package's `harness.py` dispatch over the payloads
+`witness.oracle.block_payloads` gives. These five read one per-type table,
+`BASE_CIRCUITS`. The recursion layer (`RECURSION_REGISTRY` and its
+functions) and the compression layers are not ported yet.
 
 `prove_*_instance` builds the witness inside a `layers.witness` span of
 utils/tracing.py (the witness fill time of a traced run) and checks the
@@ -27,11 +31,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from ..circuits import decommitter_circuit as cdcirc
 from ..circuits import decommitts_sorter_circuit as dscirc
+from ..circuits import ecrecover_circuit as eccirc
 from ..circuits import events_sorter_circuit as ecirc
+from ..circuits import ffarith as ffmod
 from ..circuits import keccak_circuit as kcirc
 from ..circuits import linear_hasher_circuit as lhcirc
 from ..circuits import log_demux_circuit as dcirc
@@ -39,12 +45,25 @@ from ..circuits import main_vm_circuit as mvcirc
 from ..circuits import narrow_region as nrr_mod
 from ..circuits import ram_permutation_circuit as rcirc
 from ..circuits import sha256_circuit as shcirc
+from ..circuits import storage_application_circuit as sappcirc
 from ..circuits import storage_sorter_circuit as sscirc
 from ..circuits.types import (BASE_LAYER_PROOF_CONFIG, BaseLayerCircuitType,
-                              ProofSystemConfig)
+                              ProofSystemConfig, base_capacity)
 from ..ops import goldilocks as gl
 from ..utils import tracing
 from . import plonkish as pk
+
+@dataclasses.dataclass(frozen=True)
+class CircuitFactory:
+    make_ir: Callable[[], pk.PlonkishIR]
+    make_setup: Callable[[pk.PlonkishIR, pk.PlonkishConfig, object],
+                         pk.PlonkishSetup]  # (ir, cfg, device)
+
+
+# base-layer registry: the types WITHOUT a real gate set. Every base type
+# has its real circuit, served by its own setup / prove / verify functions
+# below, so it is empty, as in the JAX package.
+BASE_REGISTRY: Dict[int, CircuitFactory] = {}
 
 _ENGINE_OVERRIDE: Optional[pk.PlonkishConfig] = None
 
@@ -154,6 +173,37 @@ def _cached_setup(key: tuple, make_ir, make_setup, circuit_type: int,
     if source is not None:
         source.set_base_layer_vk(sd.vk, int(circuit_type))
     return sd
+
+
+def _create_setup(layer: str, registry, circuit_type: int,
+                  psc: ProofSystemConfig, source=None,
+                  device=None) -> SetupData:
+    factory = registry[circuit_type]
+    return _cached_setup((layer, circuit_type), factory.make_ir,
+                         factory.make_setup, circuit_type,
+                         source if layer == "base" else None, device, psc)
+
+
+def create_base_layer_setup_data(circuit_type: int, source=None,
+                                 device=None) -> SetupData:
+    device = gl.resolve_device(device)
+    return _create_setup("base", BASE_REGISTRY, circuit_type,
+                         BASE_LAYER_PROOF_CONFIG, source, device)
+
+
+def prove_base_layer_circuit(circuit_type: int, witness, source=None,
+                             device=None):
+    device = gl.resolve_device(device)
+    sd = create_base_layer_setup_data(circuit_type, source, device)
+    return pk.prove(sd.ir, sd.setup, witness, sd.config, device=device)
+
+
+def verify_base_layer_proof(circuit_type: int, proof, vk=None,
+                            device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd = create_base_layer_setup_data(circuit_type, device=device)
+    return pk.verify(sd.ir, vk if vk is not None else sd.vk, proof,
+                     sd.config, device=device)
 
 
 def _prove_checked(sd: SetupData, make_witness, expected, circuit: str,
@@ -619,3 +669,270 @@ def verify_code_decommitter_instance(inst, capacity: int, proof, vk=None,
     sd, geo = code_decommitter_setup_data(capacity, device=device)
     return _verify_checked(sd, cdcirc.expected_public_inputs(geo, inst),
                            proof, vk, device)
+
+
+# -- ecrecover (type 7) ------------------------------------------------------
+
+def _ecrecover_program() -> eccirc.EcrecoverProgram:
+    """The one secp256k1 recovery program, u8 limbs (a 2^8 range table),
+    built once."""
+    key = ("ecrecover_prog",)
+    if key not in _SETUP_CACHE:
+        curve = eccirc.secp256k1_params(limb_bits=8)
+        _SETUP_CACHE[key] = eccirc.build_ecrecover_program(curve)
+    return _SETUP_CACHE[key]
+
+
+def ecrecover_setup_data(psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+                         source=None, device=None
+                         ) -> Tuple[SetupData, eccirc.EcrecoverProgram]:
+    """Type-7 setup: one full secp256k1 recovery program per proof
+    (36,894 active rows at u8 limbs, 286 x 2^16). `device=None` means the
+    CUDA card (raises where there is none)."""
+    device = gl.resolve_device(device)
+    eprog = _ecrecover_program()
+    sd = _cached_setup(
+        ("base_ecrecover", eprog.layout.log_n),
+        lambda: ffmod.layout_ir(eprog.layout),
+        lambda ir, cfg, dev: ffmod.ff_setup(eprog.layout, cfg,
+                                            device=dev)[1],
+        BaseLayerCircuitType.ECRECOVER, source, device, psc)
+    return sd, eprog
+
+
+def _lift_r_point(r: int, v: int) -> int:
+    """y of the lifted R = (r, y) with parity v on secp256k1."""
+    p = eccirc.SECP_P
+    y = pow((r * r * r + 7) % p, (p + 1) // 4, p)
+    assert y * y % p == (r * r * r + 7) % p, "r is not an x-coordinate"
+    return y if (y & 1) == (int(v) & 1) else p - y
+
+
+def _ecrecover_scalars(inv) -> Tuple[int, int, int]:
+    n = eccirc.SECP_N
+    return (int.from_bytes(inv.msg_hash, "big") % n, inv.r % n, inv.s % n)
+
+
+def _ecrecover_public_inputs(inv) -> list:
+    h, r, s = _ecrecover_scalars(inv)
+    return eccirc.expected_public_inputs(_ecrecover_program(), h, r, s,
+                                         inv.recovered_point)
+
+
+def prove_ecrecover_invocation(inv, source=None, device=None):
+    """Prove ONE EcrecoverInvocation (type 7) at full secp256k1 scale."""
+    device = gl.resolve_device(device)
+    sd, eprog = ecrecover_setup_data(source=source, device=device)
+    h, r, s = _ecrecover_scalars(inv)
+    ry = _lift_r_point(inv.r, inv.v)
+    return _prove_checked(
+        sd, lambda: eccirc.ecrecover_witness(eprog, sd.ir, h, r, s,
+                                             inv.recovered_point, ry,
+                                             device=device),
+        _ecrecover_public_inputs(inv), "ecrecover", device)
+
+
+def verify_ecrecover_invocation(inv, proof, vk=None, device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, _ = ecrecover_setup_data(device=device)
+    return _verify_checked(sd, _ecrecover_public_inputs(inv), proof, vk,
+                           device)
+
+
+# -- storage application (type 10) -------------------------------------------
+
+def storage_application_setup_data(
+        psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG, source=None,
+        depth: int = 256, device=None
+        ) -> Tuple[SetupData, sappcirc.PathGeometry]:
+    """Type-10 setup: one Blake2s path per proof at the state-tree depth
+    (production 256: 3,084 rows x 2,609 columns at 2^12; reduced depths are
+    the testing-geometry analogue). `device=None` means the CUDA card."""
+    device = gl.resolve_device(device)
+    geo = sappcirc.PathGeometry(depth=depth)
+    sd = _cached_setup(
+        ("base_storage_app", depth, geo.log_n),
+        lambda: sappcirc.path_ir(geo),
+        lambda ir, cfg, dev: sappcirc.path_setup(ir, geo, cfg, device=dev),
+        BaseLayerCircuitType.STORAGE_APPLICATION, source, device, psc)
+    return sd, geo
+
+
+def prove_storage_application_path(inst, source=None, device=None):
+    """Prove ONE PathInstanceInputs (type 10): a Blake2s Merkle opening of
+    the state tree at the instance's depth (production 256)."""
+    device = gl.resolve_device(device)
+    sd, geo = storage_application_setup_data(
+        source=source, depth=len(inst.path_bits), device=device)
+    return _prove_checked(
+        sd, lambda: sappcirc.path_witness(sd.ir, geo, inst, device=device),
+        sappcirc.expected_public_inputs(geo, inst), "storage_application",
+        device)
+
+
+def verify_storage_application_path(inst, proof, vk=None,
+                                    device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, geo = storage_application_setup_data(depth=len(inst.path_bits),
+                                             device=device)
+    return _verify_checked(sd, sappcirc.expected_public_inputs(geo, inst),
+                           proof, vk, device)
+
+
+@dataclasses.dataclass
+class StorageApplicationQueryProof:
+    """Read + write path proofs for one storage query (the reference proves
+    both directions of the tree update inside one instance)."""
+    read: object
+    write: object
+
+    @property
+    def public_inputs(self):
+        return list(self.read.public_inputs) + list(self.write.public_inputs)
+
+
+def prove_storage_application_query(pair, source=None, device=None
+                                    ) -> StorageApplicationQueryProof:
+    read_inst, write_inst = pair
+    return StorageApplicationQueryProof(
+        read=prove_storage_application_path(read_inst, source, device),
+        write=prove_storage_application_path(write_inst, device=device))
+
+
+def verify_storage_application_query(pair, qproof, device=None) -> bool:
+    read_inst, write_inst = pair
+    return (verify_storage_application_path(read_inst, qproof.read,
+                                            device=device)
+            and verify_storage_application_path(write_inst, qproof.write,
+                                                device=device))
+
+
+# -- the 13 real base circuits ------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BaseCircuit:
+    """One real base circuit type, for the payloads (inst, challenges,
+    capacity) of `witness.oracle.block_payloads`: its setup at a
+    GeometryConfig, the prove and verify of one payload entry, and its
+    expected public inputs. Those are computable from the payload alone,
+    before proving, which is what lets the recursion queues carry real PI
+    commitments (the reference's CircuitMaker simulates the commitment the
+    same way, src/witness/utils.rs:269-308)."""
+    setup: Callable          # (geometry, device) -> SetupData
+    prove: Callable          # (inst, challenges, capacity, source, device)
+    verify: Callable         # (inst, challenges, capacity, proof, device)
+    public_inputs: Callable  # (inst, challenges, capacity) -> list
+
+
+def _sized(ctype: int, setup_data, prove, verify, geometry_for, pis,
+           challenged: bool, **kw) -> BaseCircuit:
+    """A type whose circuit is sized by its capacity; a `challenged` type
+    takes the decomposer's binding challenges; `kw` goes to its setup,
+    prove and verify (types 11/12: the circuit type)."""
+    ch = (lambda c: (c,)) if challenged else (lambda c: ())
+    return BaseCircuit(
+        lambda g, dev: setup_data(base_capacity(g, ctype), device=dev,
+                                  **kw)[0],
+        lambda i, c, cap, src, dev: prove(i, *ch(c), cap, source=src,
+                                          device=dev, **kw),
+        lambda i, c, cap, pr, dev: verify(i, *ch(c), cap, pr, device=dev,
+                                          **kw),
+        lambda i, c, cap: pis(geometry_for(cap), i, *ch(c)))
+
+
+_T = BaseLayerCircuitType
+BASE_CIRCUITS: Dict[int, BaseCircuit] = {
+    1: _sized(_T.MAIN_VM, main_vm_setup_data, prove_main_vm_instance,
+              verify_main_vm_instance, main_vm_geometry_for_capacity,
+              mvcirc.expected_public_inputs, False),
+    2: _sized(_T.CODE_DECOMMITTMENTS_SORTER, decommitts_setup_data,
+              prove_decommitts_instance, verify_decommitts_instance,
+              decommitts_geometry_for_capacity,
+              dscirc.instance_public_inputs, True),
+    3: _sized(_T.CODE_DECOMMITTER, code_decommitter_setup_data,
+              prove_code_decommitter_instance,
+              verify_code_decommitter_instance,
+              code_decommitter_geometry_for_capacity,
+              cdcirc.expected_public_inputs, False),
+    4: _sized(_T.LOG_DEMUXER, demux_setup_data, prove_demux_instance,
+              verify_demux_instance, demux_geometry_for_capacity,
+              dcirc.instance_public_inputs, False),
+    5: _sized(_T.KECCAK_ROUND_FUNCTION, keccak_setup_data,
+              prove_keccak_instance, verify_keccak_instance,
+              keccak_geometry_for_capacity, kcirc.instance_public_inputs,
+              True),
+    6: _sized(_T.SHA256_ROUND_FUNCTION, sha256_setup_data,
+              prove_sha256_instance, verify_sha256_instance,
+              sha256_geometry_for_capacity, shcirc.instance_public_inputs,
+              True),
+    # one proof per invocation: the instance's first
+    7: BaseCircuit(
+        lambda g, dev: ecrecover_setup_data(device=dev)[0],
+        lambda i, c, cap, src, dev: prove_ecrecover_invocation(
+            i.invocations[0], source=src, device=dev),
+        lambda i, c, cap, pr, dev: verify_ecrecover_invocation(
+            i.invocations[0], pr, device=dev),
+        lambda i, c, cap: _ecrecover_public_inputs(i.invocations[0])),
+    8: _sized(_T.RAM_PERMUTATION, ram_setup_data, prove_ram_instance,
+              verify_ram_instance, ram_geometry_for_capacity,
+              rcirc.instance_public_inputs, True),
+    9: _sized(_T.STORAGE_SORTER, storage_setup_data, prove_storage_instance,
+              verify_storage_instance, storage_geometry_for_capacity,
+              sscirc.instance_public_inputs, True),
+    # instances are single PATHS (read / write flattened), each one proof
+    # slot of the recursion tower; the circuit is sized by the tree depth
+    10: BaseCircuit(
+        lambda g, dev: storage_application_setup_data(
+            depth=g.storage_tree_depth, device=dev)[0],
+        lambda i, c, cap, src, dev: prove_storage_application_path(
+            i, source=src, device=dev),
+        lambda i, c, cap, pr, dev: verify_storage_application_path(
+            i, pr, device=dev),
+        lambda i, c, cap: sappcirc.expected_public_inputs(
+            sappcirc.PathGeometry(depth=len(i.path_bits)), i)),
+    **{int(t): _sized(t, events_setup_data, prove_events_instance,
+                      verify_events_instance, events_geometry_for_capacity,
+                      ecirc.instance_public_inputs, True,
+                      circuit_type=int(t))
+       for t in (_T.EVENTS_SORTER, _T.L1_MESSAGES_SORTER)},
+    13: _sized(_T.L1_MESSAGES_HASHER, hasher_setup_data,
+               prove_hasher_instance, verify_hasher_instance,
+               hasher_geometry_for_capacity, lhcirc.expected_public_inputs,
+               False),
+}
+
+REAL_BASE_CIRCUITS = set(BASE_CIRCUITS)
+
+
+def real_base_instance_public_inputs(ctype: int, inst_w, challenges,
+                                     capacity: int):
+    """Expected public inputs of a real base circuit instance, from the
+    decomposer payload alone."""
+    return BASE_CIRCUITS[ctype].public_inputs(inst_w, challenges, capacity)
+
+
+def base_setup_for_type(ctype: int, geometry, device=None) -> SetupData:
+    """The SetupData (ir / setup / vk / engine config) that the prove
+    function of `ctype` uses at this geometry — the one accessor the
+    recursion layers need to verify base proofs in-circuit (the reference
+    passes base VKs into create_leaf_witnesses,
+    recursive_aggregation.rs:71-161)."""
+    return BASE_CIRCUITS[ctype].setup(geometry, device)
+
+
+def prove_base_instance(ctype: int, inst_w, challenges, capacity: int,
+                        source=None, device=None):
+    """Prove one instance of base type `ctype` from its payload (an entry
+    of `witness.oracle.block_payloads`): the JAX package's `harness.py`
+    dispatch. Type 7 proves the instance's first invocation, type 10 one
+    path."""
+    return BASE_CIRCUITS[ctype].prove(inst_w, challenges, capacity, source,
+                                      device)
+
+
+def verify_base_instance(ctype: int, inst_w, challenges, capacity: int,
+                         proof, device=None) -> bool:
+    """Verify a proof of `prove_base_instance`, its public inputs checked
+    against the payload's first."""
+    return BASE_CIRCUITS[ctype].verify(inst_w, challenges, capacity, proof,
+                                       device)

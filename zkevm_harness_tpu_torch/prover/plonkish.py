@@ -804,16 +804,31 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
             comb = gl.ext_add(comb, gl.ext_mul(
                 apows[b_z + 1],
                 gl.ext_mul_base(s_ext, xm1_inv)))
-        # one inversion per distinct PI row (row 0's point is 1)
-        den_invs: Dict[int, GF] = {0: xm1_inv}
-        for idx, (col, row) in enumerate(ir.public_input_cells):
-            a = apows[pi_off + idx]
-            if row not in den_invs:
-                pt = pow(w_gen, row, P)
-                den_invs[row] = gl.inv(gl.sub(xs, gl.scalar_like(pt, xs)))
-            term = gl.mul(gl.sub(wit_cols[col], pi_vals[idx]), den_invs[row])
-            comb = gl.ext_add(comb, GF2(gl.mul(term, a.c0),
-                                        gl.mul(term, a.c1)))
+        # PI terms (w_col - pi) / (x - w^row): the denominators of the
+        # distinct rows inverted in one batch (row 0's point is 1), the
+        # terms and their alpha powers stacked up to _WSUM_CHUNK at a time
+        cells = ir.public_input_cells
+        if cells:
+            rows = sorted({row for _col, row in cells} - {0})
+            pos = {0: 0, **{row: k + 1 for k, row in enumerate(rows)}}
+            dens = [xm1_inv[None]]
+            if rows:
+                pts = gl.from_int([pow(w_gen, row, P) for row in rows],
+                                  xs.device).reshape(-1, 1)
+                dens.append(gl.inv(gl.sub(xs[None, :], pts)))
+            den = torch.cat(dens)
+            for s in range(0, len(cells), _WSUM_CHUNK):
+                part = cells[s:s + _WSUM_CHUNK]
+                k = len(part)
+                w_pi = torch.stack([wit_cols[col] for col, _row in part])
+                idx = torch.tensor([pos[row] for _col, row in part],
+                                   device=den.device)
+                term = gl.mul(gl.sub(w_pi, pi_vals[s:s + k, None]),
+                              den.index_select(0, idx))
+                a = apows[pi_off + s:pi_off + s + k]
+                comb = gl.ext_add(comb, GF2(
+                    gl.sum_axis(gl.mul(term, a.c0[:, None]), axis=0),
+                    gl.sum_axis(gl.mul(term, a.c1[:, None]), axis=0)))
         return comb
 
     def call(c, wit_coeffs, s2_coeffs, s3_coeffs, const_coeffs,
