@@ -5,8 +5,9 @@
                                      # MainVM instance 764 x 2^16, the
                                      # block's RAM permutation, sorters and
                                      # log demuxer, the hash block's hash
-                                     # circuits, then the whole block's 13
-                                     # base types at production geometry
+                                     # circuits, the whole block's 13 base
+                                     # types at production geometry, then
+                                     # its aggregation tower over 8 and 7
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -78,7 +79,26 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                to their final root; launch counters of this phase
   16. kernels_block  gl_mul and poseidon2_permute against their plain
                versions and timed at the new circuits' shapes
-  17. kernels  one line {"kernels": [...], "helpers": [...]}
+  17. tower_golden  the JAX package's golden tower (the RAM permutation of
+               golden.tower_block at testing geometry, rate 2, cap 4, 2
+               queries) through harness.run_block(tower=True) on the card:
+               the leaf, node and scheduler VKs and proofs equal
+               test_artifacts/tower_golden_*.json
+  18. tower    the whole block's aggregation tower through
+               harness.run_block(tower=True) at GeometryConfig() and
+               production parameters (rate 2, cap 16, 50 queries, final FRI
+               size 512): base, leaf, node proofs of types 8 and 7 and the
+               two-slot scheduler, each proved and verified with its
+               expected public inputs; each leaf tail is its type's
+               recursion-queue tail; the scheduler proved twice to equal
+               bytes; a tampered leaf proof leaves gates of the node
+               unsatisfied and a tampered scheduler public input fails
+               verify; per recursion proof its shape, the seconds of
+               synthesis, finalize, fill, setup, prove and verify, its peak
+               memory and launches
+  19. kernels_tower  gl_mul and poseidon2_permute against their plain
+               versions and timed at the tower's shapes
+  20. kernels  one line {"kernels": [...], "helpers": [...]}
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises and
 the run exits non-zero.
@@ -502,6 +522,191 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                       for kk, vv in t.items()}
                   for k, t in timing_block.items()})
     return launches_block, timing_block
+
+
+def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
+    """Phases `tower_golden`, `tower` and `kernels_tower`: the golden tower
+    through the port's `harness.run_block(tower=True)` on the card, equal to
+    the JAX package's bytes; then the whole block's aggregation tower at
+    production parameters (base, leaf, node and scheduler proofs of types 8
+    and 7, each verified); then K1 and K2 against their plain versions and
+    timed at the tower's shapes. Returns (the tower path's launches, its
+    kernel timings)."""
+    import torch
+
+    from zkevm_harness_tpu_torch import golden, harness
+    from zkevm_harness_tpu_torch.circuits import node_circuit as nc
+    from zkevm_harness_tpu_torch.circuits.types import (GeometryConfig,
+                                                        leaf_for)
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import serde
+    from zkevm_harness_tpu_torch.vm import isa
+
+    P = gl.P
+
+    def golden_json(name):
+        with open(os.path.join(GOLDEN_DIR, name)) as f:
+            return json.load(f)
+
+    def rounded(stats):
+        return {k: (round(v, 3) if isinstance(v, float) else v)
+                for k, v in stats.items()}
+
+    def task_name(key):
+        kind, ctype, depth, index = key
+        if kind == "leaf":
+            ctype -= 2  # the base type the leaf aggregates
+        return f"{kind}_{ctype}" if kind != "scheduler" else kind
+
+    # -- tower_golden: the JAX package's golden tower, made on the card -------
+    gcfg = pk.PlonkishConfig(**golden.TOWER_GOLDEN_CONFIG)
+    t0 = time.time()
+    with ly.engine_override(gcfg):
+        gres = harness.run_block(golden.tower_block(isa), prove_mode="spot",
+                                 spot_types=(8,), tower=True,
+                                 recursion_cfg=gcfg, device=dev)
+    gsrc = gres.source
+    for name, rec in (("leaf", gsrc.get_leaf_layer_proof(10, 0)),
+                      ("node", gsrc.get_node_layer_proof(8, 0, 0)),
+                      ("scheduler", gsrc.get_scheduler_proof())):
+        if not rec or not rec.get("real"):
+            raise SystemExit(f"tower_golden: no real {name} proof")
+        if [int(v) for v in rec["vk"]] != golden_json(
+                f"tower_golden_{name}_vk.json") or \
+                json.loads(json.dumps(serde.proof_to_json(rec["proof"]))) != \
+                golden_json(f"tower_golden_{name}_proof.json"):
+            raise SystemExit(f"tower_golden: the {name} VK or proof differs "
+                             "from the golden JSON")
+    phase("tower_golden", config=golden.TOWER_GOLDEN_CONFIG, spot_types=[8],
+          vk_equal=True, proof_equal=True, verify=True,
+          tasks={task_name(k): rounded({kk: vv for kk, vv in v.items()
+                                        if kk != "launches"})
+                 for k, v in gres.tower_stats.items()},
+          total_s=round(time.time() - t0, 3))
+    del gres, gsrc
+    ly._SETUP_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # -- tower: the whole block's tower at production parameters -------------
+    bcfg = pk.PlonkishConfig(**golden.TOWER_CONFIG)
+    geo = GeometryConfig()
+    code = golden.whole_block(isa, **golden.WHOLE_BLOCK)
+    contracts = dict(golden.hash_callees(isa,
+                                         golden.WHOLE_BLOCK["callee_reps"]))
+    spot = (8, 7)
+    ck.reset_launches()
+    t_path = time.time()
+    with ly.engine_override(bcfg):
+        res = harness.run_block(code, geometry=geo, prove_mode="spot",
+                                spot_types=spot, contracts=contracts,
+                                tower=True, recursion_cfg=bcfg, device=dev)
+    torch.cuda.synchronize()
+    tower_s = time.time() - t_path
+    launches_tower = dict(ck.LAUNCHES)
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches_tower[name] <= 0:
+            raise SystemExit(f"tower path launched {name} no time")
+    src, rigs = res.source, res.recursion_rigs
+    for t in spot:
+        recs = {"base": src.get_base_layer_proof(t, 0),
+                "leaf": src.get_leaf_layer_proof(int(leaf_for(t)), 0),
+                "node": src.get_node_layer_proof(t, 0, 0)}
+        for kind, rec in recs.items():
+            if not rec or not rec.get("real"):
+                raise SystemExit(f"tower: no real {kind} proof of type {t}")
+        tail = [int(v) % P for v in res.artifacts.recursion_queues[t].tail]
+        if [int(v) for v in recs["leaf"]["proof"].public_inputs[-12:]] != \
+                tail:
+            raise SystemExit(f"tower: the leaf tail of type {t} is not its "
+                             "recursion-queue tail")
+    srec = src.get_scheduler_proof()
+    if not srec or not srec.get("real") or srec["types"] != sorted(spot):
+        raise SystemExit("tower: no real two-slot scheduler proof")
+    # the scheduler proved again from the same witness: the same bytes
+    sb, slay, sbuilt, ssetup, sW = rigs[("scheduler_witness",)]
+    again_t = time.time()
+    again = pk.prove(sbuilt.ir, ssetup, sW, bcfg, device=dev)
+    torch.cuda.synchronize()
+    sched_warm_s = time.time() - again_t
+    if serde.proof_to_json(again) != serde.proof_to_json(srec["proof"]):
+        raise SystemExit("tower: a second scheduler prove gave a different "
+                         "proof")
+    del again, sW
+    # a tampered leaf proof under the node of type 8 leaves gates unsatisfied
+    nkey = next(k for k in rigs if k[0] == "node" and k[1] == 8)
+    nb, nlay = rigs[nkey][0], rigs[nkey][1]
+    lrec = src.get_leaf_layer_proof(int(leaf_for(8)), 0)
+    honest = nb.unsatisfied_gates(nb.eval_values(nc.node_assignments(
+        nlay, lrec["vk"], [lrec["proof"]]), dev), device=dev)
+    bad_leaf = copy.deepcopy(lrec["proof"])
+    bad_leaf.public_inputs[0] = (int(bad_leaf.public_inputs[0]) + 1) % P
+    broken = nb.unsatisfied_gates(nb.eval_values(nc.node_assignments(
+        nlay, lrec["vk"], [bad_leaf]), dev), device=dev)
+    # a tampered scheduler public input is refused at verify
+    bad_sched = copy.deepcopy(srec["proof"])
+    bad_sched.public_inputs[0] = (int(bad_sched.public_inputs[0]) + 1) % P
+    tamper = {"leaf_under_node": len(honest) == 0 and len(broken) > 0,
+              "scheduler_public_input": not pk.verify(
+                  sbuilt.ir, ssetup.vk(), bad_sched, bcfg, device=dev)}
+    if not all(tamper.values()):
+        raise SystemExit(f"tower: a tampered proof was accepted: {tamper}")
+    tasks = {task_name(k): rounded(v) for k, v in res.tower_stats.items()}
+    phase("tower", block=golden.WHOLE_BLOCK, spot_types=list(spot),
+          config=golden.TOWER_CONFIG, cycles=res.cycles,
+          instances={t: len(m.instances)
+                     for t, m in res.circuit_makers.items()},
+          timings={k: round(v, 3) for k, v in res.timings.items()},
+          tower_s=round(tower_s, 3), tasks=tasks,
+          scheduler_pi=srec["scheduler_pi"],
+          scheduler_prove_warm_s=round(sched_warm_s, 3),
+          scheduler_second_proof_equal=True,
+          leaf_tails_equal_queue_tails=True,
+          unsatisfied_gates_tampered_leaf=len(broken),
+          tampered_rejected=tamper, launches=launches_tower)
+    del res, src, rigs, sb, slay, sbuilt, ssetup, nb, nlay
+    ly._SETUP_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # -- kernels_tower: K1 and K2 at the tower's shapes ----------------------
+    # a leaf's 48 columns on the 2^20-point commitment domain for the
+    # multiply; the 2^20 leaves of that commitment for the permutation
+    timing_tower = {}
+    shape = (48, 1 << 20)
+    ta, tb = rand_field(shape), rand_field(shape)
+    errs["gl_mul"] = max(errs["gl_mul"], check_equal(
+        "gl_mul tower shape", ck.gl_mul(ta, tb), ck.gl_mul_plain(ta, tb)))
+    timing_tower["gl_mul_leaf"] = {
+        "shape": list(shape),
+        "ms": cuda_ms(lambda: ck.gl_mul(ta, tb), 2, 10),
+        "plain_ms": cuda_ms(lambda: ck.gl_mul_plain(ta, tb), 1, 3),
+        "bytes": 3 * 8 * ta.numel(), "ops": ta.numel() * OPS_MUL}
+    del ta, tb
+    states = 1 << 20
+    ts = rand_field((states, 12))
+    errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
+        "poseidon2 tower shape", ck.poseidon2_permute(ts),
+        ck.poseidon2_permute_plain(ts)))
+    timing_tower["poseidon2_permute"] = {
+        "shape": [states, 12],
+        "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), 2, 10),
+        "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+        "bytes": 2 * 8 * 12 * states,
+        "ops": states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
+    del ts
+    for t in timing_tower.values():
+        by = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+        op = t["ops"] / PEAK_INT_ALU_PER_S * 1e3
+        t["bound_ms"] = max(by, op)
+        t["bound_by"] = "bytes" if by >= op else "operations"
+    phase("kernels_tower", tolerance=0,
+          max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
+          timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                      for kk, vv in t.items()}
+                  for k, t in timing_tower.items()})
+    return launches_tower, timing_tower
 
 
 def main(argv=None) -> int:
@@ -1720,8 +1925,12 @@ def main(argv=None) -> int:
           max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
           timing=rounded(timing_hash))
 
-    # -- 15-17. the whole block: types 7 and 10, all 13 base types -----------
+    # -- 14-16. the whole block: types 7 and 10, all 13 base types -----------
     launches_block, timing_block = block_phases(
+        args, dev, phase, rand_field, check_equal, cuda_ms, errs)
+
+    # -- 17-19. the aggregation tower: golden, production, kernels ------------
+    launches_tower, timing_tower = tower_phases(
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
     # -- optional: device busy share of one more prove -----------------------
@@ -1819,14 +2028,15 @@ def main(argv=None) -> int:
 
     # -- 6. the kernels line --------------------------------------------------
     def entry(name, source, replaces):
-        # launches: the four main paths together, each counted from 0 and
+        # launches: every path together, each counted from 0 and
         # read just after its run; ms and the bound at the flagship's shape,
         # the MainVM and sorters paths' beside them
         t = timing[name]
         by_path = {"flagship": launches[name], "main_vm": launches_mv[name],
                    "sorters": launches_srt[name],
                    "hashes": launches_hash[name],
-                   "block": launches_block[name]}
+                   "block": launches_block[name],
+                   "tower": launches_tower[name]}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -1847,6 +2057,10 @@ def main(argv=None) -> int:
         if block_keys:
             out["block"] = {b: {k: timing_block[b][k] for k in keys}
                             for b in block_keys}
+        tower_keys = [k for k in timing_tower if k.startswith(name)]
+        if tower_keys:
+            out["tower"] = {b: {k: timing_tower[b][k] for k in keys}
+                            for b in tower_keys}
         if name + "_one_state" in timing_mv:
             out["one_state"] = {k: timing_mv[name + "_one_state"][k]
                                 for k in keys}

@@ -74,7 +74,13 @@ def test_every_module_imports_without_jax():
                      "circuits.storage_application_circuit",
                      "witness.ecrecover_witness", "witness.tree",
                      "witness.storage_application", "witness.recursion",
-                     "witness.callstack_sim", "witness.vm_instance"):
+                     "witness.callstack_sim", "witness.vm_instance",
+                     "circuits.builder", "circuits.verifier_circuit",
+                     "circuits.leaf_circuit", "circuits.node_circuit",
+                     "circuits.scheduler_circuit", "circuits.queue_circuit",
+                     "witness.postprocessing", "witness.closed_form",
+                     "witness.scheduler_witness", "utils.data_source",
+                     "prover.scheduler", "harness"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 
@@ -352,3 +358,35 @@ def test_wrappers_refuse_a_wrong_device_or_type():
                                          device="meta"))
     with pytest.raises(ValueError):
         ck.gl_add(a, meta)
+
+
+def test_recursion_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from zkevm_harness_tpu_torch import golden, harness
+    from zkevm_harness_tpu_torch.circuits import builder as bd
+    from zkevm_harness_tpu_torch.circuits import leaf_circuit as lc
+    from zkevm_harness_tpu_torch.circuits import queue_circuit as qc
+    from zkevm_harness_tpu_torch.circuits import scheduler_circuit as sc
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.vm import isa
+    from zkevm_harness_tpu_torch.witness import postprocessing as pp
+
+    b = bd.CircuitBuilder()
+    x = b.input()
+    b.mark_public(b.mul(x, x))
+    built = b.finalize()
+    cfg = pk.PlonkishConfig(**golden.TOWER_GOLDEN_CONFIG)
+    for call in (lambda: b.fill_witness({x: 3}),
+                 lambda: b.unsatisfied_gates(b.eval_values({x: 3})),
+                 lambda: built.setup(cfg),
+                 lambda: qc.queue_setup(qc.queue_ir(6), cfg),
+                 lambda: qc.queue_witness(qc.queue_ir(6), []),
+                 lambda: lc.advance_queue_head((0,) * 12, 8, []),
+                 lambda: sc.scheduler_multi_public_inputs(None, [], [], 1),
+                 lambda: pp.CircuitMaker(8),
+                 lambda: ly.create_recursive_layer_setup_data(1),
+                 lambda: harness.run_block(golden.tower_block(isa))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

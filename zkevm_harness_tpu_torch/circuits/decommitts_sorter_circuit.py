@@ -151,12 +151,14 @@ def _strip_gates(alg, w, w_next, c, geo: DecommittsGeometry, strip: int,
             return stacked([cols[TILE_WIDTH * t + i] for t in ts])
         return cols[TILE_WIDTH * ts[0] + i]
 
+    ssum = alg.add(alg.add(sel[0], sel[1]), sel[2])  # once per strip
+
     def tile_gates(ts):
         return _tile_gates(
             alg, [lanes(w, ts, i) for i in range(T)],
             [lanes(w_next, ts, i) for i in range(T)],
             lanes(w, ts, 12), lanes(w_next, ts, 12),
-            [lanes(w, ts, 13 + k) for k in range(3)], rc, sel, diag)
+            [lanes(w, ts, 13 + k) for k in range(3)], rc, sel, diag, ssum)
 
     out = []
     if batched:

@@ -96,11 +96,13 @@ def _one_minus(alg, x):
 NUM_GATES_PER_TILE = 26
 
 
-def _tile_gates(alg, state, nxt, bv, bv_next, g, rc, sel, diag):
-    """The NUM_GATES_PER_TILE constraints of one tile."""
+def _tile_gates(alg, state, nxt, bv, bv_next, g, rc, sel, diag, ssum):
+    """The NUM_GATES_PER_TILE constraints of one tile. `ssum` is s_lin +
+    s_ext + s_int, formed once for the region (the in-circuit verifier
+    replays these algebra calls, so their number and order are the JAX
+    package's)."""
     s_lin, s_ext, s_int, s_ce, s_ee = sel
     g_lin, g_ext, g_int = g
-    ssum = alg.add(alg.add(s_lin, s_ext), s_int)
     out = []
     out.append(alg.sub(g_lin, alg.mul(s_lin, bv)))
     out.append(alg.sub(g_ext, alg.mul(s_ext, bv)))
@@ -138,12 +140,14 @@ def narrow_region_gates(alg, w, w_next, c, base: int, geo: NarrowGeometry,
     diag = get_params()["internal_diag"]
     rc = [c[rc_idx + i] for i in range(T)]
     sel = (c[slin], c[sext], c[sint], c[chunk_end], c[elem_end])
+    ssum = alg.add(alg.add(sel[0], sel[1]), sel[2])
 
     def tile_gates(lane):
         return _tile_gates(alg, [lane(w, i) for i in range(T)],
                            [lane(w_next, i) for i in range(T)],
                            lane(w, 12), lane(w_next, 12),
-                           [lane(w, 13 + k) for k in range(3)], rc, sel, diag)
+                           [lane(w, 13 + k) for k in range(3)], rc, sel, diag,
+                           ssum)
 
     if getattr(alg, "stacks_tiles", False):
         return unstack(tile_gates(lambda cols, i: stacked(

@@ -149,14 +149,16 @@ def unstack(per_kind: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [v[t] for t in range(per_kind[0].shape[0]) for v in per_kind]
 
 
-def _tile_gates(alg, state, nxt, bv, bv_next, g, rc, sel, diag):
+def _tile_gates(alg, state, nxt, bv, bv_next, g, rc, sel, diag, ssum):
     """The 29 constraints of one sponge tile: gated-selector definitions, bv
     boolean and constant within a block, the Poseidon2 transitions (carried
-    when bv = 0), and the block boundary inside the tile."""
+    when bv = 0), and the block boundary inside the tile. `ssum` is
+    s_lin + s_ext + s_int, formed once for all tiles (the in-circuit
+    verifier replays these algebra calls, so their number and order are the
+    JAX package's)."""
     s_lin, s_ext, s_int, s_end = sel
     g_lin, g_ext, g_int = g
     out = []
-    ssum = alg.add(alg.add(s_lin, s_ext), s_int)
     # gated-selector definitions (degree 2)
     out.append(alg.sub(g_lin, alg.mul(s_lin, bv)))
     out.append(alg.sub(g_ext, alg.mul(s_ext, bv)))
@@ -224,12 +226,15 @@ def ram_ir(log_n: int, tiles_per_queue: int = 1) -> pk.PlonkishIR:
                 return stacked([cols[TILE_WIDTH * t + i] for t in tiles])
             return cols[TILE_WIDTH * tiles[0] + i]
 
+        ssum = alg.add(alg.add(sel[0], sel[1]), sel[2])
+
         def tile_gates(tiles):
             return _tile_gates(
                 alg, [lanes(w, tiles, i) for i in range(T)],
                 [lanes(w_next, tiles, i) for i in range(T)],
                 lanes(w, tiles, 12), lanes(w_next, tiles, 12),
-                [lanes(w, tiles, 13 + k) for k in range(3)], rc, sel, diag)
+                [lanes(w, tiles, 13 + k) for k in range(3)], rc, sel, diag,
+                ssum)
 
         if batched:
             out += unstack(tile_gates(list(range(geo.num_tiles))))

@@ -320,3 +320,102 @@ def block_artifacts_summary(art, geometry, public_inputs) -> Dict:
             "public_inputs": [_ints(public_inputs(ctype, w, challenges, cap))
                               for w in insts]}
     return out
+
+
+# -- the block proving flow -------------------------------------------------
+
+def block_proving_summary(res, dag, aux_values) -> Dict:
+    """What `harness.run_block` of either package made of a block, as
+    JSON-ready nested lists of ints: the proof DAG (`dag`, that package's
+    `build_block_dag` over the result's recursion queues: every task's key
+    and its dependencies' keys, in order), each type's CircuitMaker (every
+    instance's closed-form input and public-input digest, the recursion
+    queue's length and tail), the scheduler witness with its aux values,
+    and each DAG record's kind and `real` flag. Equal flows give equal
+    summaries."""
+    sw = res.scheduler_witness
+    makers = {}
+    for t, cm in sorted(res.circuit_makers.items()):
+        makers[str(t)] = {
+            "queue": _queue(cm.queue),
+            "instances": [[i.index, int(i.closed_form_input.start_flag),
+                           int(i.closed_form_input.completion_flag),
+                           _ints(i.closed_form_input.compact_form()),
+                           _ints(i.public_input)] for i in cm.instances]}
+    first_last = {str(t): [None if i is None else i.index for i in fl]
+                  for t, fl in sorted(sw.first_last_closed_form_inputs
+                                      .items())}
+    return {
+        "cycles": int(res.cycles),
+        "dag": [[list(t.key()), [list(d.key()) for d in t.deps]]
+                for t in dag],
+        "records": [[list(k), rec.get("kind"), bool(rec.get("real"))]
+                    for k, rec in res.dag_results.items()],
+        "makers": makers,
+        "scheduler_witness": {
+            "block_number": int(sw.block_number),
+            "bootloader_heap_initial_content": _ints(
+                sw.bootloader_heap_initial_content),
+            "events_queue_state": [_ints(sw.events_queue_state.tail),
+                                   int(sw.events_queue_state.length)],
+            "memory_queue_state": [_ints(sw.memory_queue_state.tail),
+                                   int(sw.memory_queue_state.length)],
+            "rollup_state_diff_for_compression":
+                sw.aux_output.rollup_state_diff_for_compression.hex(),
+            "l1_messages_linear_hash":
+                sw.aux_output.l1_messages_linear_hash.hex(),
+            "first_last": first_last,
+            "aux_values": [int(v) for v in aux_values]},
+    }
+
+
+
+# -- the circuit builder ----------------------------------------------------
+
+def builder_gates(bld) -> Tuple[np.ndarray, np.ndarray]:
+    """A `CircuitBuilder`'s gates of either package as (G, 5) uint64
+    q-constants (qm, ql, qr, qo, qc) and (G, 3) int64 wires (a, b, c; -1
+    where unused)."""
+    if hasattr(bld, "gate_arrays"):
+        return bld.gate_arrays()
+    q = np.array([[int(g.qm), int(g.ql), int(g.qr), int(g.qo), int(g.qc)]
+                  for g in bld.gates], dtype=np.uint64).reshape(-1, 5)
+    w = np.array([[g.a, g.b, g.c] for g in bld.gates],
+                 dtype=np.int64).reshape(-1, 3)
+    return q, w
+
+
+def built_circuit_arrays(built) -> Tuple[np.ndarray, pk.CopyWiring]:
+    """A `BuiltCircuit` of either package as its (num_const, n) uint64 const
+    columns and its copy permutation as a `CopyWiring` in cell order."""
+    const = np.asarray(built.const_cols).astype(np.uint64)
+    if hasattr(built, "wiring"):
+        order = np.argsort(built.wiring.cells, kind="stable")
+        wiring = pk.CopyWiring(built.wiring.cells[order],
+                               built.wiring.succ[order])
+    else:
+        wiring = copy_wiring_from_dense(built.permutation)
+    return const, wiring
+
+
+# -- DAG records and data sources -------------------------------------------
+# A DAG record (`{"kind", "real", "proof", "vk", ...}`) goes to and from JSON
+# through `proof_to_json` / `proof_from_json` like a proof: the encoder
+# takes any nesting of dicts, lists and proof dataclasses.
+
+def data_source_from(src, registry=None):
+    """An `InMemoryDataSource` of either package as the port's (or, with the
+    JAX package's `serde.default_registry()`, as one whose proofs are that
+    package's): every stored VK, proof and DAG record, through the JSON."""
+    from .utils.data_source import InMemoryDataSource
+    out = InMemoryDataSource()
+    for key, value in src._store.items():
+        out.set(proof_from_json(json_roundtrip(proof_to_json(value)),
+                                registry), *key)
+    return out
+
+
+def json_roundtrip(obj):
+    """`obj` through a JSON text and back (what a file store keeps)."""
+    import json
+    return json.loads(json.dumps(obj))

@@ -24,6 +24,12 @@ artifacts and the production VKs of types 7 and 10 are behind
 `test_artifacts/{ecrecover_toy,storage_app_d4}_*.json`,
 `whole_block_golden.json` and `vk_{7,10}_production.json`
 (`tools/gen_block_golden.py`).
+
+The recursion tower (`harness.run_block(tower=True)`) of the small block of
+`tower_block` at `TOWER_GOLDEN_CONFIG` (RAM permutation 8 proved, its leaf,
+node and scheduler) is behind `test_artifacts/tower_golden_*.json`, and
+the dry block flow of `harness_block` behind
+`test_artifacts/harness_dry_summary.json` (`tools/gen_tower_golden.py`).
 """
 
 from __future__ import annotations
@@ -104,6 +110,34 @@ STORAGE_APP_LEAF = ((7).to_bytes(8, "big")
 STORAGE_APP_PATH_BITS = (1, 0, 1, 1)
 STORAGE_APP_SIBLINGS = tuple(hashlib.blake2s(bytes([i])).digest()
                              for i in range(4))
+
+
+# The config of the golden tower, base and recursion proofs alike, and the
+# production config the card proves the whole block's tower at.
+TOWER_GOLDEN_CONFIG = dict(rate=2, cap_size=4, num_queries=2,
+                           final_fri_size=8)
+TOWER_CONFIG = dict(rate=2, cap_size=16, num_queries=50, final_fri_size=512)
+
+
+def tower_block(isa) -> List:
+    """Three heap writes and reads: the block of the golden tower (its RAM
+    permutation is the one type proved)."""
+    I = isa.imm
+    return [isa.HeapWrite(I(0), I(55)), isa.HeapRead(I(0), 2),
+            isa.HeapWrite(I(1), I(66)), isa.HeapRead(I(1), 3),
+            isa.HeapWrite(I(2), I(77)), isa.HeapRead(I(2), 4),
+            isa.Ret()]
+
+
+def harness_block(isa) -> List:
+    """Storage, events, L1 messages, heap and a near call: the block of the
+    golden dry block flow."""
+    I = isa.imm
+    return [isa.StorageWrite(I(1), I(100)), isa.StorageRead(I(1), 1),
+            isa.Event(I(2), I(3)), isa.Event(I(4), I(5), to_l1=True),
+            isa.HeapWrite(I(0), I(55)), isa.HeapRead(I(0), 2),
+            isa.NearCall(target=8, exception_handler=7), isa.Ret(),
+            isa.StorageWrite(I(9), I(200)), isa.Ret()]
 
 
 def ecrecover_toy_curve() -> dict:

@@ -26,11 +26,12 @@ A field element is one int64 holding the canonical u64 bit pattern (< p).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -312,9 +313,22 @@ def poseidon2_permute_one_host(state: torch.Tensor) -> torch.Tensor:
     time; there the plain tensor version is some ten thousand tensor ops for
     twelve elements. Same function, pinned against the plain version by
     tests/test_torch_poseidon2.py. Never used for a CUDA tensor."""
-    ext, internal, diag = (t.tolist() for t in const_tables_u64())
-    x = _external_linear_ints(
+    x = poseidon2_permute_ints(
         state.reshape(T).numpy().view(np.uint64).tolist())
+    out = np.array(x, dtype=np.uint64).view(np.int64)
+    return torch.from_numpy(out).reshape(state.shape)
+
+
+@functools.lru_cache(maxsize=1)
+def _const_lists():
+    return tuple(t.tolist() for t in const_tables_u64())
+
+
+def poseidon2_permute_ints(state: Sequence[int]) -> List[int]:
+    """One 12-lane state of canonical Python ints, permuted exactly; the
+    body of `poseidon2_permute_one_host`, for callers that hold ints."""
+    ext, internal, diag = _const_lists()
+    x = _external_linear_ints(state)
     half = R_F // 2
     for r in range(R_F + R_P):
         if half <= r < half + R_P:
@@ -325,8 +339,7 @@ def poseidon2_permute_one_host(state: torch.Tensor) -> torch.Tensor:
             rc = ext[r if r < half else r - R_P]
             x = _external_linear_ints(
                 [pow(v + c, 7, P) for v, c in zip(x, rc)])
-    out = np.array(x, dtype=np.uint64).view(np.int64)
-    return torch.from_numpy(out).reshape(state.shape)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,12 @@ its real circuit — `create_base_layer_setup_data`,
 `base_setup_for_type`); and `prove_base_instance` / `verify_base_instance`,
 the JAX package's `harness.py` dispatch over the payloads
 `witness.oracle.block_payloads` gives. These five read one per-type table,
-`BASE_CIRCUITS`. The recursion layer (`RECURSION_REGISTRY` and its
-functions) and the compression layers are not ported yet.
+`BASE_CIRCUITS`. The recursion layer's typed surface:
+`RECURSION_REGISTRY` (the JAX package's stand-ins),
+`create_recursive_layer_setup_data`, `prove_recursion_layer_circuit`,
+`verify_recursion_layer_proof`, and the leaf queue-segment proofs
+(`prove_leaf_queue_segment`, `verify_leaf_queue_segment`). The
+compression layers are not ported yet.
 
 `prove_*_instance` builds the witness inside a `layers.witness` span of
 utils/tracing.py (the witness fill time of a traced run) and checks the
@@ -43,12 +47,16 @@ from ..circuits import linear_hasher_circuit as lhcirc
 from ..circuits import log_demux_circuit as dcirc
 from ..circuits import main_vm_circuit as mvcirc
 from ..circuits import narrow_region as nrr_mod
+from ..circuits import poseidon2_circuit as p2circ
+from ..circuits import queue_circuit as qcirc
 from ..circuits import ram_permutation_circuit as rcirc
 from ..circuits import sha256_circuit as shcirc
 from ..circuits import storage_application_circuit as sappcirc
 from ..circuits import storage_sorter_circuit as sscirc
-from ..circuits.types import (BASE_LAYER_PROOF_CONFIG, BaseLayerCircuitType,
-                              ProofSystemConfig, base_capacity)
+from ..circuits.types import (BASE_LAYER_PROOF_CONFIG,
+                              RECURSION_LAYER_PROOF_CONFIG,
+                              BaseLayerCircuitType, ProofSystemConfig,
+                              base_capacity)
 from ..ops import goldilocks as gl
 from ..utils import tracing
 from . import plonkish as pk
@@ -64,6 +72,32 @@ class CircuitFactory:
 # has its real circuit, served by its own setup / prove / verify functions
 # below, so it is empty, as in the JAX package.
 BASE_REGISTRY: Dict[int, CircuitFactory] = {}
+
+
+def _poseidon_factory(log_n: int) -> CircuitFactory:
+    return CircuitFactory(
+        make_ir=lambda: p2circ.poseidon2_ir(log_n),
+        make_setup=lambda ir, cfg, dev: p2circ.poseidon2_setup(
+            ir, cfg, device=dev))
+
+
+def _queue_factory(log_n: int) -> CircuitFactory:
+    return CircuitFactory(
+        make_ir=lambda: qcirc.queue_ir(log_n),
+        make_setup=lambda ir, cfg, dev: qcirc.queue_setup(ir, cfg,
+                                                          device=dev))
+
+
+# recursion-layer registry of the typed surface, the JAX package's: the
+# queue-commitment circuit stands in for the scheduler (type 1) and the
+# Poseidon2 permutation circuit for the node (2) and the 13 leaves (3-15).
+# The real leaf, node and scheduler circuits are synthesized per block by
+# `harness.run_block(tower=True)` (circuits/{leaf,node,scheduler}_circuit).
+_STAND_IN_LOG_N = 8
+RECURSION_REGISTRY: Dict[int, CircuitFactory] = {
+    1: _queue_factory(_STAND_IN_LOG_N),
+    **{t: _poseidon_factory(_STAND_IN_LOG_N) for t in range(2, 16)},
+}
 
 _ENGINE_OVERRIDE: Optional[pk.PlonkishConfig] = None
 
@@ -179,9 +213,14 @@ def _create_setup(layer: str, registry, circuit_type: int,
                   psc: ProofSystemConfig, source=None,
                   device=None) -> SetupData:
     factory = registry[circuit_type]
-    return _cached_setup((layer, circuit_type), factory.make_ir,
-                         factory.make_setup, circuit_type,
-                         source if layer == "base" else None, device, psc)
+    sd = _cached_setup((layer, circuit_type), factory.make_ir,
+                       factory.make_setup, circuit_type, None, device, psc)
+    if source is not None:  # record the VK even when the setup was cached
+        if layer == "base":
+            source.set_base_layer_vk(sd.vk, circuit_type)
+        elif layer == "recursion":
+            source.set_recursion_layer_vk(sd.vk, circuit_type)
+    return sd
 
 
 def create_base_layer_setup_data(circuit_type: int, source=None,
@@ -204,6 +243,81 @@ def verify_base_layer_proof(circuit_type: int, proof, vk=None,
     sd = create_base_layer_setup_data(circuit_type, device=device)
     return pk.verify(sd.ir, vk if vk is not None else sd.vk, proof,
                      sd.config, device=device)
+
+
+def create_recursive_layer_setup_data(circuit_type: int, source=None,
+                                      device=None) -> SetupData:
+    device = gl.resolve_device(device)
+    return _create_setup("recursion", RECURSION_REGISTRY, circuit_type,
+                         RECURSION_LAYER_PROOF_CONFIG, source, device)
+
+
+def prove_recursion_layer_circuit(circuit_type: int, witness, source=None,
+                                  device=None):
+    device = gl.resolve_device(device)
+    sd = create_recursive_layer_setup_data(circuit_type, source, device)
+    return pk.prove(sd.ir, sd.setup, witness, sd.config, device=device)
+
+
+def verify_recursion_layer_proof(circuit_type: int, proof, vk=None,
+                                 device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd = create_recursive_layer_setup_data(circuit_type, device=device)
+    return pk.verify(sd.ir, vk if vk is not None else sd.vk, proof,
+                     sd.config, device=device)
+
+
+# -- leaf queue-segment proofs ------------------------------------------------
+
+def _leaf_queue_setup(task, cfg: Optional[pk.PlonkishConfig], device
+                      ) -> SetupData:
+    k = len(task.encodings)
+    assert k >= 1 and k & (k - 1) == 0, "segment length must be a power of two"
+    log_n = (k * qcirc.ROWS_PER_PERMUTATION).bit_length() - 1
+    cfg = cfg or _engine_config(RECURSION_LAYER_PROOF_CONFIG)
+    key = ("leaf_queue", log_n, cfg.rate, cfg.cap_size, cfg.num_queries,
+           cfg.final_fri_size, str(device))
+    if key not in _SETUP_CACHE:
+        ir = qcirc.queue_ir(log_n)
+        setup = qcirc.queue_setup(ir, cfg, device=device)
+        _SETUP_CACHE[key] = SetupData(ir=ir, setup=setup, vk=setup.vk(),
+                                      config=cfg)
+    return _SETUP_CACHE[key]
+
+
+def prove_leaf_queue_segment(task, cfg: Optional[pk.PlonkishConfig] = None,
+                             device=None):
+    """Prove a leaf task's queue-segment statement with the queue-commitment
+    circuit: PIs bind the chunk's head and resulting tail, so the node layer
+    can check queue continuity against proven values. Requires a
+    power-of-two item count. This is the queue-statement HALF of a leaf
+    only: the full leaf (in-circuit verification of the child proofs) is
+    circuits/leaf_circuit.py. Returns (proof, vk)."""
+    device = gl.resolve_device(device)
+    sd = _leaf_queue_setup(task, cfg, device)
+    encs = [[int(v) for v in row] for row in task.encodings]
+    witness = qcirc.queue_witness(sd.ir, encs, head=task.queue_head,
+                                  device=device)
+    proof = pk.prove(sd.ir, sd.setup, witness, sd.config, device=device)
+    # the proven PIs must equal the witness-side queue states: head capacity
+    # lanes (the only head lanes the chain consumes) + the full 12-lane tail
+    assert tuple(proof.public_inputs[:4]) == tuple(task.queue_head[8:12])
+    assert tuple(proof.public_inputs[4:16]) == tuple(task.queue_tail)
+    return proof, sd.vk
+
+
+def verify_leaf_queue_segment(task, proof, vk,
+                              cfg: Optional[pk.PlonkishConfig] = None,
+                              device=None) -> bool:
+    device = gl.resolve_device(device)
+    k = len(task.encodings)
+    log_n = (k * qcirc.ROWS_PER_PERMUTATION).bit_length() - 1
+    cfg = cfg or _engine_config(RECURSION_LAYER_PROOF_CONFIG)
+    if tuple(proof.public_inputs[:4]) != tuple(task.queue_head[8:12]):
+        return False
+    if tuple(proof.public_inputs[4:16]) != tuple(task.queue_tail):
+        return False
+    return pk.verify(qcirc.queue_ir(log_n), vk, proof, cfg, device=device)
 
 
 def _prove_checked(sd: SetupData, make_witness, expected, circuit: str,
