@@ -7,7 +7,8 @@
                                      # log demuxer, the hash block's hash
                                      # circuits, the whole block's 13 base
                                      # types at production geometry, then
-                                     # its aggregation tower over 8 and 7
+                                     # its full chain over 8 and 7: tower,
+                                     # a blob, compression, SNARK wrapper
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -40,7 +41,7 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                geometry (GeometryConfig() capacities, 50 queries): the
                production VKs of types 8, 11, 12, 9 and 4 equal
                setup/setup/base_layer/vk_N.json; the block's one instance of
-               each of types 8, 11, 9 and 4 is decomposed, proved twice,
+               each of types 8, 11, 9 and 4 is decomposed, proved,
                verified, its public inputs checked, and a tampered public
                input and OOD value rejected; launch counters of this phase
   11. hashes_golden  the first instance of each hash circuit of the small
@@ -55,10 +56,9 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                proved, verified, public inputs checked (the hasher's digest is
                keccak256 of the L1 messages, each decommitter's the SHA-256
                in its versioned hash, the round functions' final
-               accumulators in the last PI lanes); the first instance of each
-               proved twice, tampered copies rejected; then the same block's
-               L1-messages sorter (type 12, VK equal to vk_12.json) and MainVM
-               (type 1) instances; launch counters of this phase
+               accumulators in the last PI lanes); tampered copies of the
+               first instance of each rejected; launch counters of this
+               phase
   13. kernels_hashes  gl_mul and poseidon2_permute against their plain
                versions and timed at the hash path's shapes
   14. block_golden  the golden ecrecover (type 7, toy curve) and
@@ -84,21 +84,50 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                queries) through harness.run_block(tower=True) on the card:
                the leaf, node and scheduler VKs and proofs equal
                test_artifacts/tower_golden_*.json
-  18. tower    the whole block's aggregation tower through
-               harness.run_block(tower=True) at GeometryConfig() and
+  18. wrap_golden  made on the card, equal to the JAX package's bytes
+               (tools/gen_wrap_golden.py): the five-mode compression chain
+               over the queue_ir(5) stand-in; compression mode 1 at its
+               production config (LDE 32) over the golden tower's scheduler
+               proof; the "pi" SNARK proof of that scheduler's public
+               inputs; the EIP-4844 witness chain, blob-circuit VK and proof
+               at the 16-element testing domain; the full chain over
+               golden.tower_block with that blob in the scheduler's blob
+               slot (scheduler VK and proof, mode 1, SNARK proof equal
+               test_artifacts/wrap_blob_*); mode proofs with an inner
+               public input changed refused by the STARK verifier; the
+               native MSMs ran
+  19. tower    the whole block's full chain through
+               full_chain.prove_block_full_chain at GeometryConfig(): base,
+               leaf and node proofs of types 8 and 7 and the scheduler at
                production parameters (rate 2, cap 16, 50 queries, final FRI
-               size 512): base, leaf, node proofs of types 8 and 7 and the
-               two-slot scheduler, each proved and verified with its
-               expected public inputs; each leaf tail is its type's
+               size 512), the scheduler verifying one 496-byte blob's fold
+               proof (KzgSettings.testing(16), its final FRI size 256 so
+               that it folds) in a third slot, then
+               compression mode 1 (LDE 32, cap 16, 40 queries, final 32)
+               and the "pi" BN254 PLONK wrapper; each proof verified with
+               its expected public inputs; each leaf tail is its type's
                recursion-queue tail; the scheduler proved twice to equal
                bytes; a tampered leaf proof leaves gates of the node
                unsatisfied and a tampered scheduler public input fails
-               verify; per recursion proof its shape, the seconds of
-               synthesis, finalize, fill, setup, prove and verify, its peak
-               memory and launches
-  19. kernels_tower  gl_mul and poseidon2_permute against their plain
-               versions and timed at the tower's shapes
-  20. kernels  one line {"kernels": [...], "helpers": [...]}
+               verify; the block commitment binds the blob's output hash;
+               mode 1's public inputs are the scheduler's VK and public
+               inputs, and with one of the scheduler's public inputs
+               changed the STARK verifier refuses it; the SNARK's
+               public input packs the scheduler's and a wrong one is
+               refused; per proof its shape, the seconds of synthesis,
+               finalize, fill, setup, prove and verify, its peak memory and
+               launches; with --profile the chain once more under the
+               profiler for the device's idle share
+  20. eip4844  the blob circuit at full width (4,096 elements, u8 limbs)
+               at the chain's base config, elements and point from a seed:
+               setup, prove, verify with the expected public inputs; the
+               STARK verifier refuses the public inputs of a tampered
+               element and opening value, and a tampered OOD value
+  21. kernels_tower, kernels_wrap  gl_mul and poseidon2_permute against
+               their plain versions and timed at the tower's shapes, at
+               compression mode 1's LDE and at the 4,096-element blob
+               circuit's
+  22. kernels  one line {"kernels": [...], "helpers": [...]}
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises and
 the run exits non-zero.
@@ -140,10 +169,18 @@ OPS_ADD = 8
 # layers (62 each), 96 + 22 round constants, 22 internal sums (23 each)
 P2_MULS = 8 * 12 * 4 + 22 * (4 + 12)
 P2_ADDS = 9 * 62 + 96 + 22 + 22 * 23
+GOLDILOCKS_P = (1 << 64) - (1 << 32) + 1
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def pi_bumped(proof, k=0):
+    """A copy of `proof` with its public input k changed."""
+    bad = copy.deepcopy(proof)
+    bad.public_inputs[k] = (int(bad.public_inputs[k]) + 1) % GOLDILOCKS_P
+    return bad
 
 
 def main_vm_block(golden, isa):
@@ -532,17 +569,22 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     and 7, each verified); then K1 and K2 against their plain versions and
     timed at the tower's shapes. Returns (the tower path's launches, its
     kernel timings)."""
+    import numpy as np
     import torch
 
+    from zkevm_harness_tpu_torch import full_chain as fc
     from zkevm_harness_tpu_torch import golden, harness
     from zkevm_harness_tpu_torch.circuits import node_circuit as nc
+    from zkevm_harness_tpu_torch.circuits import scheduler_circuit as sc_circ
     from zkevm_harness_tpu_torch.circuits.types import (GeometryConfig,
                                                         leaf_for)
     from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
     from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import compression as cmp
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
-    from zkevm_harness_tpu_torch.utils import serde
+    from zkevm_harness_tpu_torch.utils import kzg, native, serde
+    from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
     from zkevm_harness_tpu_torch.vm import isa
 
     P = gl.P
@@ -586,29 +628,50 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                                         if kk != "launches"})
                  for k, v in gres.tower_stats.items()},
           total_s=round(time.time() - t0, 3))
+
+    # -- wrap_golden: compression, the "pi" SNARK and the blob branch ---------
+    if not native.have_native() or not native.have_msm():
+        raise SystemExit("the native library or its MSM did not load")
+    wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded)
     del gres, gsrc
     ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
 
-    # -- tower: the whole block's tower at production parameters -------------
+    # -- tower: the whole block's full chain at production parameters -------
     bcfg = pk.PlonkishConfig(**golden.TOWER_CONFIG)
     geo = GeometryConfig()
     code = golden.whole_block(isa, **golden.WHOLE_BLOCK)
     contracts = dict(golden.hash_callees(isa,
                                          golden.WHOLE_BLOCK["callee_reps"]))
     spot = (8, 7)
+    settings = kzg.KzgSettings.testing(16)
+    blob = bytes(np.random.default_rng(4844).integers(
+        0, 256, size=31 * 16, dtype=np.uint8))
+    # the 16-element blob is a 2^8-row circuit, whose 512-point LDE a final
+    # FRI size of 512 does not fold: its proof folds once to 256
+    blob_cfg = dataclasses.replace(bcfg, final_fri_size=256)
+    msm_before = dict(native.MSM_CALLS)
+
+    def run_chain():
+        return fc.prove_block_full_chain(
+            code, chain_types=spot, geometry=geo, base_cfg=bcfg,
+            recursion_cfg=bcfg, compression_layers=1, contracts=contracts,
+            snark_mode="pi", blobs=[blob], blob_kzg_settings=settings,
+            blob_cfg=blob_cfg, device=dev)
+
     ck.reset_launches()
     t_path = time.time()
-    with ly.engine_override(bcfg):
-        res = harness.run_block(code, geometry=geo, prove_mode="spot",
-                                spot_types=spot, contracts=contracts,
-                                tower=True, recursion_cfg=bcfg, device=dev)
+    chain = run_chain()
     torch.cuda.synchronize()
-    tower_s = time.time() - t_path
+    chain_s = time.time() - t_path
     launches_tower = dict(ck.LAUNCHES)
     for name in ("gl_mul", "poseidon2_permute"):
         if launches_tower[name] <= 0:
-            raise SystemExit(f"tower path launched {name} no time")
+            raise SystemExit(f"full chain launched {name} no time")
+    msm_runs = {k: native.MSM_CALLS[k] - msm_before[k] for k in msm_before}
+    if min(msm_runs.values()) <= 0:
+        raise SystemExit(f"full chain: a native MSM did not run: {msm_runs}")
+    res = chain.block
     src, rigs = res.source, res.recursion_rigs
     for t in spot:
         recs = {"base": src.get_base_layer_proof(t, 0),
@@ -623,8 +686,10 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
             raise SystemExit(f"tower: the leaf tail of type {t} is not its "
                              "recursion-queue tail")
     srec = src.get_scheduler_proof()
-    if not srec or not srec.get("real") or srec["types"] != sorted(spot):
-        raise SystemExit("tower: no real two-slot scheduler proof")
+    if not srec or not srec.get("real") or srec["types"] != sorted(spot) \
+            or srec["num_blob_slots"] != 1:
+        raise SystemExit("tower: no real scheduler proof with two type "
+                         "slots and one blob slot")
     # the scheduler proved again from the same witness: the same bytes
     sb, slay, sbuilt, ssetup, sW = rigs[("scheduler_witness",)]
     again_t = time.time()
@@ -648,27 +713,112 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     # a tampered scheduler public input is refused at verify
     bad_sched = copy.deepcopy(srec["proof"])
     bad_sched.public_inputs[0] = (int(bad_sched.public_inputs[0]) + 1) % P
+    # the block commitment binds the blob's output hash: recomputed with
+    # another output hash in the aux values, it differs
+    sched_pi = [int(v) for v in chain.scheduler_pi]
+    aux = sc_circ.scheduler_aux_values(res.scheduler_witness)
+    out_hash = chain.eip4844[0]["output_hash"]
+    words = [int.from_bytes(out_hash[i:i + 4], "big")
+             for i in range(0, 32, 4)]
+    if aux[-8:] != words:
+        raise SystemExit("tower: the blob's output hash is not the last of "
+                         "the scheduler's aux values")
+    types = sorted(spot)
+    node_recs = [src.get_node_layer_proof(t, 0, 0) for t in types]
+    commit_args = ([r["vk"] for r in node_recs],
+                   [r["proof"] for r in node_recs], 1)
+    blob_args = dict(blob_vks=[chain.eip4844[0]["vk"]],
+                     blob_proofs=[chain.eip4844[0]["proof"]], device=dev)
+    other = aux[:-8] + [(w + 1) % P for w in words]
+    commitment = {
+        "recomputed_equal": sc_circ.scheduler_multi_public_inputs(
+            slay, *commit_args, aux, **blob_args) == sched_pi,
+        "other_output_hash_differs": sc_circ.scheduler_multi_public_inputs(
+            slay, *commit_args, other, **blob_args) != sched_pi}
+    if not all(commitment.values()):
+        raise SystemExit(f"tower: the block commitment does not bind the "
+                         f"blob's output hash: {commitment}")
+    # compression mode 1 over the scheduler: verified, bound to the
+    # scheduler's VK and public inputs; with one of the scheduler's public
+    # inputs changed (past the VK prefix) the STARK verifier refuses it
+    final = chain.final["final_proof"]
+    sched_vk = [int(v) for v in chain.scheduler.vk]
+    verifier = ly.CompressionChain(chain.scheduler.ir, chain.scheduler.cfg,
+                                   chain.scheduler.vk, device=dev)
+    mode1 = ly.create_compression_layer_setup_data(
+        1, chain.scheduler.ir, chain.scheduler.cfg, device=dev).sd
+    bad_final = pi_bumped(final, len(sched_vk))
+    snark_proof, snark_vk = chain.snark["proof"], chain.snark["vk"]
+    wrap = {
+        "compression_verifies": verifier.verify_fn(1, final,
+                                                   chain.final["final_vk"]),
+        "compression_pis_are_scheduler_vk_and_pis":
+            [int(v) for v in final.public_inputs] ==
+            sched_vk + [int(v) for v in srec["proof"].public_inputs],
+        "compression_tampered_rejected": not pk.verify(
+            mode1.ir, mode1.vk, bad_final, mode1.config, device=dev),
+        "snark_public_input_packs_scheduler_pi":
+            int(snark_proof.public_inputs[-1]) ==
+            cmp.compress_stark_pi_to_snark_pi(sched_pi) ==
+            int(chain.final["snark_public_input"]),
+        "snark_verifies": sw.verify_wrapped_proof(
+            snark_vk, snark_proof, expected_scheduler_pi=sched_pi),
+        "snark_other_pi_rejected": not sw.verify_wrapped_proof(
+            snark_vk, snark_proof,
+            expected_scheduler_pi=[(v + 1) % P for v in sched_pi])}
     tamper = {"leaf_under_node": len(honest) == 0 and len(broken) > 0,
               "scheduler_public_input": not pk.verify(
                   sbuilt.ir, ssetup.vk(), bad_sched, bcfg, device=dev)}
-    if not all(tamper.values()):
-        raise SystemExit(f"tower: a tampered proof was accepted: {tamper}")
+    if not all(tamper.values()) or not all(wrap.values()):
+        raise SystemExit(f"tower: a check of the chain failed: {tamper} "
+                         f"{wrap}")
     tasks = {task_name(k): rounded(v) for k, v in res.tower_stats.items()}
+    wrap_stats = {k: rounded(v) for k, v in chain.stats.items()}
+    mode1_shape = (chain.stats["compression_1"]["width"],
+                   chain.stats["compression_1"]["log_n"])
     phase("tower", block=golden.WHOLE_BLOCK, spot_types=list(spot),
-          config=golden.TOWER_CONFIG, cycles=res.cycles,
+          config=golden.TOWER_CONFIG,
+          blob_config=chain.stats["eip4844_0"]["config"],
+          compression_config=dataclasses.asdict(
+              ly.compression_engine_config(1)),
+          snark_mode="pi", blob_bytes=len(blob), kzg_domain=16,
+          cycles=res.cycles,
           instances={t: len(m.instances)
                      for t, m in res.circuit_makers.items()},
           timings={k: round(v, 3) for k, v in res.timings.items()},
-          tower_s=round(tower_s, 3), tasks=tasks,
-          scheduler_pi=srec["scheduler_pi"],
+          chain_s=round(chain_s, 3), tasks=tasks, wrap_tasks=wrap_stats,
+          scheduler_pi=sched_pi, snark_public_input=str(
+              chain.final["snark_public_input"]),
           scheduler_prove_warm_s=round(sched_warm_s, 3),
           scheduler_second_proof_equal=True,
           leaf_tails_equal_queue_tails=True,
           unsatisfied_gates_tampered_leaf=len(broken),
-          tampered_rejected=tamper, launches=launches_tower)
-    del res, src, rigs, sb, slay, sbuilt, ssetup, nb, nlay
+          commitment_binds_blob=commitment, wrap_checks=wrap,
+          tampered_rejected=tamper, native_msm_runs=msm_runs,
+          launches=launches_tower)
+    del res, src, rigs, sb, slay, sbuilt, ssetup, nb, nlay, chain, verifier
+    del final, bad_final, mode1
     ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
+    if args.profile:
+        # the chain once more under the profiler (the device's activity
+        # alone); its busy time against the unprofiled run's wall time
+        _wall_s, rows = device_rows(run_chain, host_too=False)
+        busy_s = sum(r[2] for r in rows) / 1e6
+        top = sorted(rows, key=lambda r: -r[2])[:12]
+        phase("profile_chain", chain_s=round(chain_s, 3),
+              profiled_wall_s=round(_wall_s, 3),
+              device_busy_s=round(busy_s, 3),
+              device_idle_share=round(1 - busy_s / chain_s, 3),
+              device_launches=sum(r[1] for r in rows),
+              top_kernels=[{"name": k[:80], "count": c,
+                            "device_ms": round(us / 1e3, 2)}
+                           for k, c, us in top])
+        ly._SETUP_CACHE.clear()
+        torch.cuda.empty_cache()
+
+    # -- eip4844: the blob circuit at full width ------------------------------
+    launches_blob, blob_shape = eip4844_phase(dev, phase, bcfg, rounded)
 
     # -- kernels_tower: K1 and K2 at the tower's shapes ----------------------
     # a leaf's 48 columns on the 2^20-point commitment domain for the
@@ -706,7 +856,282 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
           timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                       for kk, vv in t.items()}
                   for k, t in timing_tower.items()})
-    return launches_tower, timing_tower
+
+    # -- kernels_wrap: K1 and K2 at mode 1's LDE and the blob circuit's -------
+    # mode 1's columns on its LDE-32 domain for the multiply and its leaves
+    # for the permutation; the blob circuit's columns on its rate-2 domain
+    width, log_n = mode1_shape
+    lde = ly.compression_engine_config(1).rate
+    shapes = {"gl_mul_mode1": (width, lde << log_n),
+              "gl_mul_blob": (blob_shape[0], 2 << blob_shape[1])}
+    timing_wrap = {}
+    for key, shape in shapes.items():
+        ta, tb = rand_field(shape), rand_field(shape)
+        errs["gl_mul"] = max(errs["gl_mul"], check_equal(
+            key, ck.gl_mul(ta, tb), ck.gl_mul_plain(ta, tb)))
+        timing_wrap[key] = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: ck.gl_mul(ta, tb), 2, 10),
+            "plain_ms": cuda_ms(lambda: ck.gl_mul_plain(ta, tb), 1, 3),
+            "bytes": 3 * 8 * ta.numel(), "ops": ta.numel() * OPS_MUL}
+        del ta, tb
+        torch.cuda.empty_cache()
+    states = lde << log_n
+    ts = rand_field((states, 12))
+    errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
+        "poseidon2 mode-1 shape", ck.poseidon2_permute(ts),
+        ck.poseidon2_permute_plain(ts)))
+    timing_wrap["poseidon2_permute_mode1"] = {
+        "shape": [states, 12],
+        "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), 2, 10),
+        "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+        "bytes": 2 * 8 * 12 * states,
+        "ops": states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
+    del ts
+    torch.cuda.empty_cache()
+    for t in timing_wrap.values():
+        by = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+        op = t["ops"] / PEAK_INT_ALU_PER_S * 1e3
+        t["bound_ms"] = max(by, op)
+        t["bound_by"] = "bytes" if by >= op else "operations"
+    phase("kernels_wrap", tolerance=0,
+          max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
+          timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                      for kk, vv in t.items()}
+                  for k, t in timing_wrap.items()})
+    return launches_tower, launches_blob, timing_tower, timing_wrap
+
+
+def wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded):
+    """Phase `wrap_golden`: made on the card, equal to the JAX package's
+    bytes (tools/gen_wrap_golden.py): the five-mode compression chain over
+    the `queue_ir(5)` stand-in; mode 1 at its production config (LDE 32)
+    over the golden tower's scheduler proof `gres` made; the "pi" SNARK
+    proof of that scheduler's public inputs; the EIP-4844 witness chain and
+    the blob circuit's VK and proof at the 16-element testing domain; the
+    full chain over the golden tower's block with that blob in the
+    scheduler's blob slot (scheduler VK and proof, mode 1, SNARK)."""
+    import torch
+
+    from zkevm_harness_tpu_torch import convert, golden
+    from zkevm_harness_tpu_torch import full_chain as fc
+    from zkevm_harness_tpu_torch.circuits import queue_circuit as qc
+    from zkevm_harness_tpu_torch.prover import compression as cmp
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import kzg, native, serde
+    from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
+    from zkevm_harness_tpu_torch.utils.data_source import InMemoryDataSource
+    from zkevm_harness_tpu_torch.utils.native import keccak256
+    from zkevm_harness_tpu_torch.vm import isa
+    from zkevm_harness_tpu_torch.witness import eip4844 as w4844
+
+    t0 = time.time()
+    laps = {}
+
+    def lap(name):
+        torch.cuda.synchronize()
+        laps[name + "_s"] = round(time.time() - t0 - sum(laps.values()), 3)
+
+    def same(stem, vk, proof):
+        if [int(v) for v in vk] != golden_json(f"{stem}_vk.json") or \
+                json.loads(json.dumps(serde.proof_to_json(proof))) != \
+                golden_json(f"{stem}_proof.json"):
+            raise SystemExit(f"wrap_golden: {stem} differs from the golden "
+                             "JSON")
+
+    def refused_past_vk(chain, mode, proof):
+        """The mode's STARK verifier refuses `proof` with one of the inner
+        layer's public inputs (past the inner VK prefix) changed."""
+        ir, cfg, vk = chain.final_shape(mode)
+        k = len(chain.final_shape(mode - 1)[2])  # mode 0: the scheduler
+        return not pk.verify(ir, vk, pi_bumped(proof, k), cfg, device=dev)
+
+    msm_before = dict(native.MSM_CALLS)
+    # 1. the five modes over the stand-in scheduler (tests/test_compression)
+    scfg = pk.PlonkishConfig(rate=2, cap_size=4, num_queries=2,
+                             final_fri_size=8)
+    red = pk.PlonkishConfig(rate=2, cap_size=4, num_queries=1,
+                            final_fri_size=8)
+    qir = qc.queue_ir(5)
+    qsetup = qc.queue_setup(qir, scfg, device=dev)
+    qproof = pk.prove(qir, qsetup, qc.queue_witness(
+        qir, [[i + 1 for i in range(8)]], device=dev), scfg, device=dev)
+    same("wrap_standin_scheduler", qsetup.vk(), qproof)
+    chain5 = ly.CompressionChain(qir, scfg, qsetup.vk(),
+                                 outer_cfgs={m: red for m in range(1, 6)},
+                                 device=dev)
+    src5 = InMemoryDataSource()
+    out5 = cmp.wrap_proof(qproof, qproof.public_inputs[:4],
+                          cmp.WrapperConfig(5), chain5.prove_fn,
+                          chain5.verify_fn, src5)
+    for mode in range(1, 6):
+        same(f"wrap_standin_mode{mode}", chain5.final_shape(mode)[2],
+             src5.get_compression_proof(mode) if mode < 5
+             else out5["final_proof"])
+    if not refused_past_vk(chain5, 5, out5["final_proof"]):
+        raise SystemExit("wrap_golden: a tampered mode-5 proof verified")
+    lap("five_modes")
+    # 2. mode 1 at LDE 32 over the golden tower's scheduler
+    sir, svk = gres.recursion_rigs[("scheduler",)]
+    srec = gres.source.get_scheduler_proof()
+    sched_pi = [int(v) for v in srec["scheduler_pi"]]
+    chain1 = ly.CompressionChain(sir, gcfg, svk, device=dev)
+    out1 = cmp.wrap_proof(srec["proof"], sched_pi, cmp.WrapperConfig(1),
+                          chain1.prove_fn, chain1.verify_fn)
+    same("wrap_mode1", out1["final_vk"], out1["final_proof"])
+    if not refused_past_vk(chain1, 1, out1["final_proof"]):
+        raise SystemExit("wrap_golden: a tampered mode-1 proof verified")
+    lap("mode1")
+    # 3. the "pi" SNARK proof of the scheduler's public inputs
+    wsetup = sw.wrapper_setup()
+    sproof = sw.wrap_scheduler_pi(wsetup, sched_pi)
+    if convert.plonk_vk_to_json(wsetup.vk) != golden_json(
+            "wrap_snark_pi_vk.json") or convert.plonk_proof_to_json(
+            sproof) != golden_json("wrap_snark_pi_proof.json"):
+        raise SystemExit("wrap_golden: the SNARK VK or proof differs")
+    if not sw.verify_wrapped_proof(wsetup.vk, sproof,
+                                   expected_scheduler_pi=sched_pi):
+        raise SystemExit("wrap_golden: the SNARK proof does not verify")
+    lap("snark")
+    # 4. the blob branch at the testing domain
+    want = golden_json("eip4844_golden.json")
+    settings = kzg.KzgSettings.testing(16)
+    if [list(p) for p in settings.g1_lagrange_brp] != \
+            want["settings"]["g1_lagrange_brp"]:
+        raise SystemExit("wrap_golden: the testing KZG settings differ")
+    wit = w4844.generate_eip4844_witness(bytes.fromhex(want["blob"]),
+                                         settings)
+    if convert.eip4844_witness_to_json(wit) != want["witness"]:
+        raise SystemExit("wrap_golden: the blob's witness chain differs")
+    x = int.from_bytes(keccak256(wit[1] + wit[2])[16:], "big") % kzg.R
+    elements = [int.from_bytes(c, "little") for c in wit[0]]
+    if x != want["x"] or elements != want["elements"]:
+        raise SystemExit("wrap_golden: the blob's point or elements differ")
+    with ly.engine_override(gcfg):
+        bsd, _ = ly.create_eip4844_setup_data(16, limb_bits=8, device=dev)
+        bproof = ly.prove_eip4844(elements, x, n_elements=16, limb_bits=8,
+                                  device=dev)
+        ok = ly.verify_eip4844(elements, x, bproof, n_elements=16,
+                               limb_bits=8, device=dev)
+    if not ok:
+        raise SystemExit("wrap_golden: the blob proof does not verify")
+    same("eip4844_n16", bsd.vk, bproof)
+    lap("eip4844")
+    # 5. the full chain over the golden tower's block with that blob in the
+    # scheduler's blob slot: scheduler, mode 1 at LDE 32 and the SNARK
+    bchain = fc.prove_block_full_chain(
+        golden.tower_block(isa), chain_types=(8,), base_cfg=gcfg,
+        recursion_cfg=gcfg, blobs=[bytes.fromhex(want["blob"])],
+        blob_kzg_settings=settings, device=dev)
+    summary = golden_json("wrap_blob_summary.json")
+    same("wrap_blob_scheduler", bchain.scheduler.vk, bchain.scheduler.proof)
+    same("wrap_blob_mode1", bchain.final["final_vk"],
+         bchain.final["final_proof"])
+    if [int(v) for v in bchain.scheduler_pi] != summary["scheduler_pi"] or \
+            str(bchain.final["snark_public_input"]) != \
+            summary["snark_public_input"] or \
+            convert.plonk_proof_to_json(bchain.snark["proof"]) != \
+            golden_json("wrap_blob_snark_pi_proof.json"):
+        raise SystemExit("wrap_golden: the blob chain's scheduler PIs or "
+                         "SNARK proof differ from the golden JSON")
+    if bchain.block.source.get_scheduler_proof()["num_blob_slots"] != 1:
+        raise SystemExit("wrap_golden: the blob chain's scheduler has no "
+                         "blob slot")
+    lap("blob_chain")
+    msm_runs = {k: native.MSM_CALLS[k] - msm_before[k] for k in msm_before}
+    if min(msm_runs.values()) <= 0:
+        raise SystemExit(f"wrap_golden: a native MSM did not run: {msm_runs}")
+    phase("wrap_golden", vk_equal=True, proof_equal=True, verify=True,
+          tampered_rejected=True, standin_scheduler_config=dataclasses.asdict(
+              scfg), standin_mode_config=dataclasses.asdict(red),
+          mode1_config=dataclasses.asdict(ly.compression_engine_config(1)),
+          modes={m: rounded(st) for m, st in chain5.stats.items()},
+          mode1=rounded(chain1.stats[1]),
+          blob_chain={k: rounded(v) for k, v in bchain.stats.items()},
+          blob_chain_scheduler_pi=summary["scheduler_pi"],
+          native_msm_runs=msm_runs,
+          seconds=laps)
+
+
+def eip4844_phase(dev, phase, bcfg, rounded):
+    """Phase `eip4844`: the blob circuit at full width (4,096 elements, u8
+    limbs) at the chain's base config, elements and point drawn from a
+    seed: setup, prove and verify with the expected public inputs; the
+    STARK verifier refuses the public inputs of a tampered element, a
+    tampered opening value and a tampered OOD value. Returns the
+    path's launches and the circuit's (width, log_n)."""
+    import numpy as np
+    import torch
+
+    from zkevm_harness_tpu_torch.circuits import eip4844_circuit as e4
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import tracing
+
+    n, fr = 4096, e4.FR_MODULUS
+    limbs = np.random.default_rng(4096).integers(
+        0, 1 << 62, size=(n + 1, 5), dtype=np.uint64).tolist()
+    draws = [sum(int(v) << (62 * k) for k, v in enumerate(row)) % fr
+             for row in limbs]
+    elements, x = draws[:n], draws[n]
+    ck.reset_launches()
+    t_path = time.time()
+    watch = tracing.Stopwatch(dev)
+    with ly.engine_override(bcfg):
+        sd, prog = ly.create_eip4844_setup_data(n, limb_bits=8, device=dev)
+        watch.lap("setup")
+        proof = ly.prove_eip4844(elements, x, n_elements=n, limb_bits=8,
+                                 device=dev)
+        watch.lap("prove")
+        ok = ly.verify_eip4844(elements, x, proof, n_elements=n,
+                               limb_bits=8, device=dev)
+        watch.lap("verify")
+        stats = watch.done(log_n=sd.ir.log_n, width=sd.ir.num_witness,
+                           const_columns=sd.ir.num_const,
+                           rows=prog.layout.num_rows,
+                           public_inputs=len(proof.public_inputs))
+        torch.cuda.synchronize()
+        path_s = time.time() - t_path
+        launches = dict(ck.LAUNCHES)
+        # each tampered proof goes to the STARK verifier itself: the
+        # public inputs of another element, another opening value, and
+        # one OOD value changed under the expected public inputs
+        bad_el = list(elements)
+        bad_el[7] = (bad_el[7] + 1) % fr
+        other = e4.expected_public_inputs(
+            prog, e4.instance_inputs(bad_el, x, device=dev))
+        bad_pis = copy.deepcopy(proof)
+        bad_pis.public_inputs = [int(v) % gl.P for v in other]
+        bad_ood = copy.deepcopy(proof)
+        c0, c1 = bad_ood.ood_witness[3]
+        bad_ood.ood_witness[3] = ((int(c0) + 1) % gl.P, c1)
+
+        def refused(bad):
+            return not pk.verify(sd.ir, sd.vk, bad, sd.config, device=dev)
+
+        tamper = {"element": refused(bad_pis),
+                  "opening": refused(pi_bumped(proof,
+                                               len(proof.public_inputs) - 1)),
+                  "ood_witness": refused(bad_ood)}
+    if not ok or not all(tamper.values()):
+        raise SystemExit(f"eip4844: verify {ok}, tampered refused {tamper}")
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches[name] <= 0:
+            raise SystemExit(f"eip4844 path launched {name} no time")
+    opening = e4.opening_value(prog, proof.public_inputs)
+    if opening != e4.horner_fold(elements, x):
+        raise SystemExit("eip4844: the proven opening is not the fold")
+    phase("eip4844", n_elements=n, limb_bits=8, config=dataclasses.asdict(
+        bcfg), stats=rounded(stats), path_s=round(path_s, 3), verify=True,
+        public_inputs_expected=True, tampered_rejected=tamper,
+        launches=launches)
+    del sd, prog, proof, bad_pis, bad_ood
+    ly._SETUP_CACHE.clear()
+    torch.cuda.empty_cache()
+    return launches, (stats["width"], stats["log_n"])
 
 
 def main(argv=None) -> int:
@@ -719,8 +1144,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="prove each main path (and each memory and log "
                          "circuit, and each hash circuit) once more under "
-                         "torch.profiler and print the device's busy share "
-                         "and the top kernels")
+                         "torch.profiler, and run the full chain once more "
+                         "under it, and print the device's busy share and "
+                         "the top kernels")
     ap.add_argument("--compare-broadcast", action="store_true",
                     help="prove again with the elementwise kernels' broadcast "
                          "operands materialised in PyTorch (all of them, and "
@@ -1420,20 +1846,18 @@ def main(argv=None) -> int:
             ok, verify_s = timed(lambda: verify_one(inst, chals, proof))
             if not ok:
                 raise SystemExit(f"sorters: {name} proof does not verify")
-            again, warm_s = timed(lambda: prove_one(inst, chals))
-            if serde.proof_to_json(again) != serde.proof_to_json(proof):
-                raise SystemExit(f"sorters: {name}: a second prove gave a "
-                                 "different proof")
-            del again
             profiled = {}
-            if args.profile:  # the device's busy share of one more prove,
-                # whose launches are taken back out of the path's counts
+            if args.profile:  # the device's busy share of a warm prove:
+                # one prove timed, one more under the profiler, their
+                # launches taken back out of the path's counts
                 counted = dict(ck.LAUNCHES)
+                _, warm_s = timed(lambda: prove_one(inst, chals))
                 _, rows = device_rows(lambda: prove_one(inst, chals),
                                       host_too=False)
                 ck.LAUNCHES.update(counted)
                 busy_s = sum(r[2] for r in rows) / 1e6
-                profiled = {"device_busy_s": round(busy_s, 3),
+                profiled = {"prove_warm_s": round(warm_s, 3),
+                            "device_busy_s": round(busy_s, 3),
                             "device_idle_share": round(1 - busy_s / warm_s,
                                                        3)}
             expected = [int(v) % P for v in pis_of(geo, inst, chals)]
@@ -1473,10 +1897,9 @@ def main(argv=None) -> int:
                 "setup_s": round(setup_s, 3),
                 "witness_fill_s": round(fill_s, 3),
                 "prove_s": round(prove_s, 3),
-                "prove_warm_s": round(warm_s, 3),
                 "verify_s": round(verify_s, 3), "verify": True,
                 "public_inputs_as_expected": True,
-                "second_proof_equal": True, "tampered_rejected": tamper,
+                "tampered_rejected": tamper,
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "launches": {k: ck.LAUNCHES[k] - before[k]
                              for k in ck.LAUNCHES},
@@ -1702,7 +2125,7 @@ def main(argv=None) -> int:
                             f"differs from setup/setup/base_layer/"
                             f"vk_{ctype}.json")
                 rec["vk_equal"] = True
-            proves, verifies, fills, warm = [], [], [], None
+            proves, verifies, fills = [], [], []
             for k, inst in enumerate(insts):
                 tracing.GLOBAL.spans.clear()
                 before_prove = dict(ck.LAUNCHES)
@@ -1722,22 +2145,17 @@ def main(argv=None) -> int:
                 proves.append(round(prove_s, 3))
                 verifies.append(round(verify_s, 3))
                 if k == 0:
-                    again, warm_s = timed(lambda: prove_one(inst, ctx))
-                    if serde.proof_to_json(again) != \
-                            serde.proof_to_json(proof):
-                        raise SystemExit(f"hashes: {name}: a second prove "
-                                         "gave a different proof")
-                    del again
-                    warm = round(warm_s, 3)
                     if args.profile:  # as in phase `sorters`
                         counted = dict(ck.LAUNCHES)
+                        _, warm_s = timed(lambda: prove_one(inst, ctx))
                         _, rows = device_rows(lambda: prove_one(inst, ctx),
                                               host_too=False)
                         ck.LAUNCHES.update(counted)
                         busy_s = sum(r[2] for r in rows) / 1e6
+                        rec["prove_warm_s"] = round(warm_s, 3)
                         rec["device_busy_s"] = round(busy_s, 3)
-                        rec["device_idle_share"] = round(1 - busy_s / warm_s,
-                                                         3)
+                        rec["device_idle_share"] = round(
+                            1 - busy_s / warm_s, 3)
                     expected, tamper = check_instance(
                         name, sd, geo, inst, ctx, proof, verify_one, pis_of)
                     rec["public_inputs"] = len(expected)
@@ -1778,9 +2196,8 @@ def main(argv=None) -> int:
             rec.update({
                 "artifacts_s": round(art_s, 3), "setup_s": round(setup_s, 3),
                 "witness_fill_s": fills, "prove_s": proves,
-                "prove_warm_s": warm, "verify_s": verifies, "verify": True,
+                "verify_s": verifies, "verify": True,
                 "public_inputs_as_expected": True,
-                "second_proof_equal": True,
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "launches": {k: ck.LAUNCHES[k] - before[k]
                              for k in ck.LAUNCHES}})
@@ -1788,87 +2205,6 @@ def main(argv=None) -> int:
             del sd, geo
             ly._SETUP_CACHE.clear()
 
-        # the same block's L1-messages sorter (type 12): its output feeds the
-        # hasher
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        before = dict(ck.LAUNCHES)
-        ecap = geo_cfg.cycles_per_events_or_l1_messages_sorter
-        l1_art, art_s = timed(lambda: compute_events_circuit_artifacts(
-            hst["l1"], ecap, circuit_type=12, device=dev))
-        (sd, geo), setup_s = timed(lambda: ly.events_setup_data(
-            ecap, circuit_type=12, device=dev))
-        with open(os.path.join(PROD_VK_DIR, "vk_12.json")) as f:
-            if sd.vk != [int(v) for v in json.load(f)]:
-                raise SystemExit("hashes: the production VK of type 12 "
-                                 "differs from setup/setup/base_layer/"
-                                 "vk_12.json")
-        if len(l1_art.instances) != 1:
-            raise SystemExit("hashes: expected one L1-sorter instance")
-        l1_inst = l1_art.instances[0]
-        proof, prove_s = timed(lambda: ly.prove_events_instance(
-            l1_inst, l1_art.challenges, ecap, circuit_type=12, device=dev))
-        l1_verify = lambda i, x, p: ly.verify_events_instance(  # noqa: E731
-            i, x, ecap, p, circuit_type=12, device=dev)
-        ok, verify_s = timed(lambda: l1_verify(l1_inst, l1_art.challenges,
-                                               proof))
-        if not ok:
-            raise SystemExit("hashes: the L1 sorter proof does not verify")
-        expected, tamper = check_instance(
-            "l1_sorter", sd, geo, l1_inst, l1_art.challenges, proof,
-            l1_verify, ecirc.instance_public_inputs)
-        hper_type["l1_sorter"] = {
-            "circuit_type": 12, "log_n": sd.ir.log_n,
-            "width": sd.ir.num_witness, "items": int(l1_inst.num_items),
-            "vk_equal": True, "artifacts_s": round(art_s, 3),
-            "setup_s": round(setup_s, 3), "prove_s": round(prove_s, 3),
-            "verify_s": round(verify_s, 3), "verify": True,
-            "public_inputs_as_expected": True, "tampered_rejected": tamper,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "launches": {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}}
-        del proof, sd, geo
-        ly._SETUP_CACHE.clear()
-
-    # the same block's MainVM instance (type 1) at production geometry: far
-    # calls and precompile write-backs, on phase 8's setup of that geometry
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before = dict(ck.LAUNCHES)
-    hmv_art, art_s = timed(lambda: wmv.compute_main_vm_artifacts(
-        htracer, mv_geo, capacity=MAIN_VM_CYCLES, device=dev))
-    if len(hmv_art.instances) != 1:
-        raise SystemExit("hashes: expected one MainVM instance")
-    wmv.crosscheck_query_binding(htracer, mv_geo, hmv_art)
-    hmv_inst = hmv_art.instances[0]
-    hmv_wit, fill_s = timed(lambda: mvc.main_vm_witness(
-        mv_ir, mv_geo, hmv_inst, device=dev))
-    hmv_proof, prove_s = timed(lambda: pk.prove(mv_ir, mv_setup, hmv_wit,
-                                                mv_cfg, device=dev))
-    del hmv_wit
-    ok, verify_s = timed(lambda: pk.verify(mv_ir, mv_vk, hmv_proof, mv_cfg,
-                                           device=dev, strict=True))
-    if not ok:
-        raise SystemExit("hashes: the hash block's MainVM proof does not "
-                         "verify")
-    if [int(v) for v in hmv_proof.public_inputs] != \
-            [int(v) % P for v in mvc.expected_public_inputs(mv_geo,
-                                                            hmv_inst)]:
-        raise SystemExit("hashes: MainVM public inputs are not the expected "
-                         "ones")
-    bad = copy.deepcopy(hmv_proof)
-    bump_ood(bad)
-    if pk.verify(mv_ir, mv_vk, bad, mv_cfg, device=dev):
-        raise SystemExit("hashes: a tampered MainVM proof was accepted")
-    hper_type["main_vm"] = {
-        "circuit_type": 1, "log_n": mv_geo.log_n, "width": mv_ir.num_witness,
-        "cycles": htracer.cycle_counter, "artifacts_s": round(art_s, 3),
-        "witness_fill_s": round(fill_s, 3), "prove_s": round(prove_s, 3),
-        "verify_s": round(verify_s, 3), "verify": True,
-        "public_inputs_as_expected": True,
-        "tampered_rejected": {"ood_witness": True},
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}}
-    del hmv_proof, bad
     launches_hash = dict(ck.LAUNCHES)
     hpath_s = time.time() - t_path
     tracing.GLOBAL.enabled = False
@@ -1929,8 +2265,8 @@ def main(argv=None) -> int:
     launches_block, timing_block = block_phases(
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
-    # -- 17-19. the aggregation tower: golden, production, kernels ------------
-    launches_tower, timing_tower = tower_phases(
+    # -- 17-22. the tower and the wrap: golden, full chain, blob, kernels ----
+    launches_tower, launches_blob, timing_tower, timing_wrap = tower_phases(
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
     # -- optional: device busy share of one more prove -----------------------
@@ -2036,7 +2372,8 @@ def main(argv=None) -> int:
                    "sorters": launches_srt[name],
                    "hashes": launches_hash[name],
                    "block": launches_block[name],
-                   "tower": launches_tower[name]}
+                   "full_chain": launches_tower[name],
+                   "eip4844": launches_blob[name]}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -2061,6 +2398,10 @@ def main(argv=None) -> int:
         if tower_keys:
             out["tower"] = {b: {k: timing_tower[b][k] for k in keys}
                             for b in tower_keys}
+        wrap_keys = [k for k in timing_wrap if k.startswith(name)]
+        if wrap_keys:
+            out["wrap"] = {b: {k: timing_wrap[b][k] for k in keys}
+                           for b in wrap_keys}
         if name + "_one_state" in timing_mv:
             out["one_state"] = {k: timing_mv[name + "_one_state"][k]
                                 for k in keys}

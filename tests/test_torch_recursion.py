@@ -238,6 +238,14 @@ LIST_PATH_IRS = {
          lambda m: m.path_ir(m.PathGeometry(depth=4))),
     11: ("events_sorter_circuit", lambda m: m.events_ir(
         *dataclasses.astuple(tly.events_geometry_for_capacity(_geo(11))))),
+    3: ("decommitter_circuit", lambda m: m.decommitter_ir(
+        tly.code_decommitter_geometry_for_capacity(_geo(3)).log_n)),
+    5: ("keccak_circuit", lambda m: m.keccak_ir(
+        tly.keccak_geometry_for_capacity(_geo(5)).log_n)),
+    6: ("sha256_circuit", lambda m: m.sha256_ir(
+        tly.sha256_geometry_for_capacity(_geo(6)).log_n)),
+    13: ("linear_hasher_circuit", lambda m: m.hasher_ir(
+        tly.hasher_geometry_for_capacity(_geo(13)).log_n)),
 }
 
 
@@ -361,6 +369,96 @@ def test_scheduler_aux_values_of_the_tower_block(tower):
     from zkevm_harness_tpu_torch.vm import isa
     res = harness.run_block(golden.tower_block(isa), device="cpu")
     assert tsc.scheduler_aux_values(res.scheduler_witness) == tower["aux"]
+
+
+@pytest.fixture(scope="module")
+def blob_scheduler(tower):
+    """The scheduler of the golden tower's block with one blob slot (the
+    16-element blob circuit under the same config), synthesized in both
+    packages, and the committed proofs of that chain
+    (tools/gen_wrap_golden.py, stage `chain`): its node proof is the golden
+    tower's, its blob proof `eip4844_n16_proof.json`."""
+    from zkevm_harness_tpu.circuits import eip4844_circuit as je4
+    t = tower
+    with tly.engine_override(t["cfg"]):
+        bsd, _ = tly.create_eip4844_setup_data(16, limb_bits=8, device="cpu")
+    jl = je4.build_eip4844_program(16, limb_bits=8).layout
+    jblob_ir = dataclasses.replace(
+        jff.ff_ir(jl.params, jl.log_n, jl.num_rows, bind_c=jl.bind_c),
+        public_input_cells=jl.pi_cells)
+    summary = _load("wrap_blob_summary.json")
+    aux = summary["aux_values"]
+    jnb, _ = jnc.synthesize_node(t["jleaf_ir"], t["jcfg"], 1)
+    tnb, _ = tnc.synthesize_node(t["tleaf_ir"], t["cfg"], 1)
+    jb, jlay = jsc.synthesize_scheduler_multi(
+        [(jnb.finalize().ir, t["jcfg"])], (8,), aux_len=len(aux),
+        blob_children=[(jblob_ir, t["jcfg"])])
+    tb, tlay = tsc.synthesize_scheduler_multi(
+        [(tnb.finalize().ir, t["cfg"])], (8,), aux_len=len(aux),
+        blob_children=[(bsd.ir, bsd.config)])
+    jblob, tblob = _proofs("eip4844_n16_proof.json")
+    jsched, tsched = _proofs("wrap_blob_scheduler_proof.json")
+    return dict(jb=jb, jlay=jlay, tb=tb, tlay=tlay, tbuilt=tb.finalize(),
+                aux=aux, summary=summary, blob_vk=bsd.vk, jblob=jblob,
+                tblob=tblob, tsched=tsched,
+                vk=_load("wrap_blob_scheduler_vk.json"))
+
+
+def _blob_args(t, s, blob):
+    return ([t["node_vk"]], [t["tnode"]], 1, s["aux"]), \
+        dict(blob_vks=[s["blob_vk"]], blob_proofs=[blob])
+
+
+def test_scheduler_with_a_blob_slot_equal_to_jax_and_the_golden(
+        tower, blob_scheduler):
+    """One type slot and one blob slot: the port's scheduler is the JAX
+    package's, gate for gate and value for value, and its commitment over
+    the aux values with the blob's output hash is the golden chain's."""
+    t, s = tower, blob_scheduler
+    assert s["aux"][:-8] == t["aux"]  # the blob's output hash comes last
+    same_builders(s["jb"], s["tb"])
+    args, blob = _blob_args(t, s, s["tblob"])
+    ta = tsc.scheduler_multi_assignments(s["tlay"], *args, **blob)
+    same_assignments(jsc.scheduler_multi_assignments(
+        s["jlay"], [t["node_vk"]], [t["jnode"]], 1, s["aux"],
+        blob_vks=[s["blob_vk"]], blob_proofs=[s["jblob"]]), ta)
+    s["jb"].finalize()
+    W = same_witness(s["jb"], s["tb"], ta)
+    pis = tsc.scheduler_multi_public_inputs(s["tlay"], *args, **blob,
+                                            device="cpu")
+    assert pis == s["summary"]["scheduler_pi"] == \
+        [int(v) for v in s["tsched"].public_inputs]
+    assert violations(s["tbuilt"], W, pis) == []
+
+
+def test_scheduler_with_a_blob_slot_verifies_the_golden_proof(
+        blob_scheduler):
+    """The port's verifier over that circuit and the golden VK accepts the
+    golden scheduler proof and refuses it with its commitment changed."""
+    s = blob_scheduler
+    cfg = tpk.PlonkishConfig(**TOWER_CFG)
+    ir = s["tbuilt"].ir
+    assert tpk.verify(ir, s["vk"], s["tsched"], cfg, device="cpu")
+    assert not tpk.verify(ir, s["vk"], bump_first_pi(s["tsched"]), cfg,
+                          device="cpu")
+
+
+@pytest.mark.slow
+def test_scheduler_with_a_blob_slot_setup_gives_the_golden_vk(
+        blob_scheduler):
+    """The port's setup of that scheduler (2^15 x 60, minutes of the plain
+    Poseidon2 on a CPU) gives the golden VK."""
+    s = blob_scheduler
+    cfg = tpk.PlonkishConfig(**TOWER_CFG)
+    assert s["tbuilt"].setup(cfg, device="cpu").vk() == s["vk"]
+
+
+def test_scheduler_with_a_blob_slot_rejects_a_tampered_blob_proof(
+        tower, blob_scheduler):
+    t, s = tower, blob_scheduler
+    args, blob = _blob_args(t, s, bump_first_pi(s["tblob"]))
+    assert failing_gates(s["tb"], tsc.scheduler_multi_assignments(
+        s["tlay"], *args, **blob)) > 0
 
 
 # -- the queue circuit and the recursion surface of layers ----------------------

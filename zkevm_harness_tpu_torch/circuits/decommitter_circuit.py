@@ -101,12 +101,52 @@ class DecommitterGeometry:
         return self.n // ROWS_PER_INVOCATION
 
 
-def _pairs(alg, first, second):
-    """Two groups of 8 values interleaved: first[0], second[0], first[1],
-    ..."""
-    if stacks(alg):
-        return rows_of(torch.stack([first, second], dim=1))
-    return [v for pair in zip(first, second) for v in pair]
+def _digest_gates_stacked(alg, w, w_next, Sw, Sw_n, v, v_n, s_o, s_h, s_f,
+                          s_d) -> List:
+    D = col_stack(w, _C.D, 8)
+    dga = col_stack(w, _C.DIGA, 8)
+    dga_n = col_stack(w_next, _C.DIGA, 8)
+    out = []
+    # digest at the output row, and carried one row so the chain row sees it
+    digest = alg.mul(s_o, alg.sub(
+        alg.add(D, alg.mul_int(col_stack(w, _C.CD, 8), 1 << 32)),
+        alg.add(col_stack(w, _C.HIN, 8), Sw)))
+    carry = alg.mul(s_o, alg.sub(col_stack(w_next, _C.D, 8), D))
+    out += rows_of(torch.stack([digest, carry], dim=1))
+    # CHAINING: the next compression continues from this digest
+    out += rows_of(alg.mul(alg.mul(s_h, v_n), alg.sub(Sw_n, D)))
+    # block 0 starts from the FIPS IV
+    iv = gl.from_int([P - x for x in _IV], D.device).reshape(8, 1)
+    out += rows_of(alg.mul(s_f, alg.add(Sw, iv)))
+    # digest accumulators: capture D while valid, carry elsewhere
+    upd = alg.mul(s_o, alg.sub(dga_n, alg.add(
+        alg.mul(v, D), alg.mul(_one_minus(alg, v), dga))))
+    keep = alg.mul(s_d, alg.sub(dga_n, dga))
+    out += rows_of(torch.stack([upd, keep], dim=1))
+    return out
+
+
+def _digest_gates_host(alg, w, w_next, Sw, Sw_n, v, v_n, s_o, s_h, s_f,
+                       s_d) -> List:
+    """The same values as the JAX package's loops form them (its algebra
+    calls in its order; `Sw`, `Sw_n` form each word where it is read)."""
+    out = []
+    for j in range(8):
+        out.append(alg.mul(s_o, alg.sub(
+            alg.add(w[_C.D + j], alg.mul_int(w[_C.CD + j], 1 << 32)),
+            alg.add(w[_C.HIN + j], Sw[j]))))
+        out.append(alg.mul(s_o, alg.sub(w_next[_C.D + j], w[_C.D + j])))
+    for j in range(8):
+        out.append(alg.mul(alg.mul(s_h, v_n), alg.sub(Sw_n[j], w[_C.D + j])))
+    for j in range(8):
+        out.append(alg.mul(s_f, alg.add_int(Sw[j], P - _IV[j])))
+    for j in range(8):
+        dga, dga_n = w[_C.DIGA + j], w_next[_C.DIGA + j]
+        upd = alg.add(alg.mul(v, w[_C.D + j]),
+                      alg.mul(_one_minus(alg, v), dga))
+        out.append(alg.mul(s_o, alg.sub(dga_n, upd)))
+        out.append(alg.mul(s_d, alg.sub(dga_n, dga)))
+    return out
 
 
 def decommitter_ir(log_n: int) -> pk.PlonkishIR:
@@ -121,50 +161,12 @@ def decommitter_ir(log_n: int) -> pk.PlonkishIR:
         out, Sw, Ww, Sw_n = sha256_core_gates(alg, w, w_next, s_r, s_s2,
                                               s_a, k_rc)
         v, v_n = w[_C.V], w_next[_C.V]
-        if stacks(alg):
-            D = col_stack(w, _C.D, 8)
-            D_n = col_stack(w_next, _C.D, 8)
-            hin = col_stack(w, _C.HIN, 8)
-            cd = col_stack(w, _C.CD, 8)
-            dga = col_stack(w, _C.DIGA, 8)
-            dga_n = col_stack(w_next, _C.DIGA, 8)
-            iv = gl.from_int([P - x for x in _IV], D.device).reshape(8, 1)
-        else:
-            D = [w[_C.D + j] for j in range(8)]
-            D_n = [w_next[_C.D + j] for j in range(8)]
-            hin = [w[_C.HIN + j] for j in range(8)]
-            cd = [w[_C.CD + j] for j in range(8)]
-            dga = [w[_C.DIGA + j] for j in range(8)]
-            dga_n = [w_next[_C.DIGA + j] for j in range(8)]
-
-        def each(fn, *groups):
-            """fn over the 8 entries of each group (stacked: at once)."""
-            if stacks(alg):
-                return fn(*groups)
-            return [fn(*vals) for vals in zip(*groups)]
-
-        # digest at the output row, and carried one row so the chain row
-        # sees it
-        digest = each(lambda d, c_, h, s: alg.mul(s_o, alg.sub(
-            alg.add(d, alg.mul_int(c_, 1 << 32)), alg.add(h, s))),
-            D, cd, hin, Sw)
-        carry = each(lambda d_n, d: alg.mul(s_o, alg.sub(d_n, d)), D_n, D)
-        out += _pairs(alg, digest, carry)
-
-        # CHAINING: the next compression continues from this digest
-        sel = alg.mul(s_h, v_n)
-        out += rows_of(alg.mul(sel, alg.sub(Sw_n, D))) if stacks(alg) \
-            else [alg.mul(sel, alg.sub(Sw_n[j], D[j])) for j in range(8)]
-        # block 0 starts from the FIPS IV
-        out += rows_of(alg.mul(s_f, alg.add(Sw, iv))) if stacks(alg) \
-            else [alg.mul(s_f, alg.add_int(Sw[j], P - _IV[j]))
-                  for j in range(8)]
-
-        # digest accumulators: capture D while valid, carry elsewhere
-        upd = each(lambda dn, d, a: alg.mul(s_o, alg.sub(dn, alg.add(
-            alg.mul(v, d), alg.mul(_one_minus(alg, v), a)))), dga_n, D, dga)
-        keep = each(lambda dn, a: alg.mul(s_d, alg.sub(dn, a)), dga_n, dga)
-        out += _pairs(alg, upd, keep)
+        # the digest (defined, carried), the chaining, the IV, the digest
+        # accumulators
+        digest_gates = (_digest_gates_stacked if stacks(alg)
+                        else _digest_gates_host)
+        out += digest_gates(alg, w, w_next, Sw, Sw_n, v, v_n, s_o, s_h, s_f,
+                            s_d)
 
         # validity / count chains
         out += validity_count_gates(alg, v, v_n, w[_C.CNT], w_next[_C.CNT],

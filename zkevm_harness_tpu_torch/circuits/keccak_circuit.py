@@ -270,6 +270,30 @@ def challenge_power_gates(alg, w, w_next, pch_base: int, count: int,
     return out
 
 
+class LazyWords:
+    """Word values on the host algebras, formed anew at each access and in
+    the order they are read: the JAX package's list path forms a word
+    where it uses it, and the in-circuit verifier replays exactly those
+    algebra calls, so reusing a formed word would change its circuit."""
+
+    def __init__(self, make, count: int):
+        self._make, self._count = make, count
+
+    def __len__(self) -> int:
+        return self._count
+
+    def __getitem__(self, j: int):
+        return self._make(j)
+
+    def __iter__(self):
+        return (self._make(j) for j in range(self._count))
+
+    @staticmethod
+    def concat(*groups) -> "LazyWords":
+        index = [(g, j) for g in groups for j in range(len(g))]
+        return LazyWords(lambda i: index[i][0][index[i][1]], len(index))
+
+
 def dot_powers(alg, w, pch_base: int, values):
     """sum_j pch[j] * values[j] over the challenge-power columns from
     `pch_base` (values: a list, or a stacked (k, n) tensor)."""
@@ -328,7 +352,7 @@ def keccak_ir(log_n: int) -> pk.PlonkishIR:
                     acc_ = term if acc_ is None else alg.add(acc_, term)
                 return acc_
 
-            limbs = [limb(j) for j in range(NUM_LIMBS)]
+            limbs = LazyWords(limb, NUM_LIMBS)
 
         v, v_n = w[_C.V], w_next[_C.V]
         out += validity_count_gates(alg, v, v_n, w[_C.CNT], w_next[_C.CNT],

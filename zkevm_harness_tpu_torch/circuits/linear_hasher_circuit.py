@@ -49,10 +49,11 @@ import torch
 from ..ops import goldilocks as gl
 from ..prover import plonkish as pk
 from .keccak_circuit import (NUM_BITS, NUM_LANES, NUM_ROUNDS,
-                             challenge_power_gates, challenge_powers,
-                             col_stack, dot_powers, keccak_core_gates,
-                             keccak_round_trace, lane_bits, place_rows,
-                             rc_bits, round_traces, rows_of, slot_sources,
+                             LazyWords, challenge_power_gates,
+                             challenge_powers, col_stack, dot_powers,
+                             keccak_core_gates, keccak_round_trace,
+                             lane_bits, place_rows, rc_bits, round_traces,
+                             rows_of, slot_sources,
                              stacks, state_limbs, validity_count_gates,
                              words_of_bits, _one_minus, _xor)
 
@@ -172,7 +173,7 @@ def hasher_ir(log_n: int) -> pk.PlonkishIR:
                               alg.mul(_one_minus(alg, v), dig))
                 out.append(alg.mul(s_o, alg.sub(dig_n, upd)))
                 out.append(alg.mul(s_d, alg.sub(dig_n, dig)))
-            blk_limbs = [limb(_C.BLK, j) for j in range(BLK_LIMBS)]
+            blk_limbs = LazyWords(lambda j: limb(_C.BLK, j), BLK_LIMBS)
 
         # validity / count chains
         out += validity_count_gates(alg, v, v_n, w[_C.CNT], w_next[_C.CNT],

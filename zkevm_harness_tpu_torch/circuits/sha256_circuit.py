@@ -57,9 +57,9 @@ import torch
 from ..ops import goldilocks as gl
 from ..prover import plonkish as pk
 from ..witness.precompile_rounds import _SHA_K
-from .keccak_circuit import (challenge_power_gates, col_stack, dot_powers,
-                             place_rows, rows_of, slot_sources, stacks,
-                             validity_count_gates, words_of_bits)
+from .keccak_circuit import (LazyWords, challenge_power_gates, col_stack,
+                             dot_powers, place_rows, rows_of, slot_sources,
+                             stacks, validity_count_gates, words_of_bits)
 
 P = gl.P
 M32 = 0xFFFFFFFF
@@ -295,9 +295,9 @@ def sha256_core_gates(alg, w, w_next, s_r, s_s2, s_a, k_rc):
             acc = t if acc is None else alg.add(acc, t)
         return acc
 
-    Sw = [word(sbit, j) for j in range(8)]
-    Sw_n = [word(sbit_n, j) for j in range(8)]
-    Ww = [word(wbit, k) for k in range(16)]
+    Sw = LazyWords(lambda j: word(sbit, j), 8)
+    Sw_n = LazyWords(lambda j: word(sbit_n, j), 8)
+    Ww = LazyWords(lambda k: word(wbit, k), 16)
     t1 = alg.add(alg.add(Sw[7], cap_sigma(4, 6, 11, 25)),
                  alg.add(ch_word(), alg.add(k_rc, Ww[0])))
     t2 = alg.add(cap_sigma(0, 2, 13, 22), maj_word())
@@ -330,7 +330,7 @@ def concat_words(alg, *groups):
     the device algebra, lists on the host)."""
     if stacks(alg):
         return torch.cat(list(groups))
-    return [v for g in groups for v in g]
+    return LazyWords.concat(*groups)
 
 
 def sha256_ir(log_n: int) -> pk.PlonkishIR:

@@ -2,7 +2,8 @@
 
 The JAX package stores a field element as a (lo, hi) pair of uint32 planes;
 the port stores one int64 holding the u64 bit pattern. This module converts
-field arrays, a `PlonkishSetup` and a `PlonkishProof` in both directions.
+field arrays, a `PlonkishSetup` and a `PlonkishProof` in both directions, and
+a BN254 PLONK proof and VK and the EIP-4844 witness chain to and from JSON.
 MainVM instances, artifacts and a tracer's queries, and the instance payloads
 of the hash and storage-application circuits, are plain Python ints (or
 object arrays of them) in dataclasses of the same field names in both
@@ -114,6 +115,86 @@ def proof_from_json(data, registry=None):
 def proof_to_package(proof, registry=None):
     """Re-type a proof of one package as the other's, through the JSON."""
     return proof_from_json(proof_to_json(proof), registry)
+
+
+# A compression proof and its VK are a `PlonkishProof` and a list of ints, so
+# they take the same conversion (`proof_to_json` / `proof_from_json`).
+
+
+# -- BN254 PLONK proofs and VKs, the EIP-4844 witness chain ------------------
+# A PLONK proof's and VK's curve points are Python ints: a G1 point (x, y), a
+# G2 point ((x0, x1), (y0, y1)), None the point at infinity. JSON keeps the
+# ints and turns the tuples into lists; reading restores the tuples (the
+# curve code compares points as tuples).
+
+def _point(v):
+    if v is None:
+        return None
+    return tuple(_point(x) if isinstance(x, list) else int(x) for x in v)
+
+
+def _listed(v):
+    if isinstance(v, (tuple, list)):
+        return [_listed(x) for x in v]
+    return v if v is None else int(v)
+
+
+def plonk_proof_to_json(proof) -> Dict:
+    """A `PlonkProof` of either package -> a JSON structure."""
+    return {"public_inputs": [int(x) for x in proof.public_inputs],
+            "comms": {k: _listed(v) for k, v in proof.comms.items()},
+            "evals": {k: int(v) for k, v in proof.evals.items()},
+            "w_zeta": _listed(proof.w_zeta),
+            "w_zeta_omega": _listed(proof.w_zeta_omega)}
+
+
+def plonk_proof_from_json(data, cls=None):
+    """The JSON structure -> a `PlonkProof` (the port's, or `cls`)."""
+    if cls is None:
+        from .utils.plonk import PlonkProof as cls
+    return cls(public_inputs=[int(x) for x in data["public_inputs"]],
+               comms={k: _point(v) for k, v in data["comms"].items()},
+               evals={k: int(v) for k, v in data["evals"].items()},
+               w_zeta=_point(data["w_zeta"]),
+               w_zeta_omega=_point(data["w_zeta_omega"]))
+
+
+def plonk_vk_to_json(vk) -> Dict:
+    """A `PlonkVerificationKey` of either package -> a JSON structure."""
+    return {"n": int(vk.n),
+            "q_comms": {k: _listed(v) for k, v in vk.q_comms.items()},
+            "sigma_comms": _listed(vk.sigma_comms),
+            "public_gates": [int(g) for g in vk.public_gates],
+            "g2_powers": _listed(vk.g2_powers)}
+
+
+def plonk_vk_from_json(data, cls=None):
+    """The JSON structure -> a `PlonkVerificationKey` (the port's, or
+    `cls`)."""
+    if cls is None:
+        from .utils.plonk import PlonkVerificationKey as cls
+    return cls(n=int(data["n"]),
+               q_comms={k: _point(v) for k, v in data["q_comms"].items()},
+               sigma_comms=tuple(_point(v) for v in data["sigma_comms"]),
+               public_gates=[int(g) for g in data["public_gates"]],
+               g2_powers=tuple(_point(v) for v in data["g2_powers"]))
+
+
+def eip4844_witness_to_json(witness) -> Dict:
+    """`generate_eip4844_witness`'s (chunks, linear_hash, versioned_hash,
+    output_hash) -> hex strings."""
+    chunks, linear_hash, versioned_hash, output_hash = witness
+    return {"chunks": [c.hex() for c in chunks],
+            "linear_hash": linear_hash.hex(),
+            "versioned_hash": versioned_hash.hex(),
+            "output_hash": output_hash.hex()}
+
+
+def eip4844_witness_from_json(data) -> Tuple:
+    return ([bytes.fromhex(c) for c in data["chunks"]],
+            bytes.fromhex(data["linear_hash"]),
+            bytes.fromhex(data["versioned_hash"]),
+            bytes.fromhex(data["output_hash"]))
 
 
 # -- MainVM witness objects -------------------------------------------------

@@ -26,17 +26,15 @@ import dataclasses
 import time
 from typing import Dict, Optional, Sequence
 
-import torch
-
 from .circuits import leaf_circuit as lc
 from .circuits import node_circuit as nc
 from .circuits import scheduler_circuit as sc_circ
 from .circuits.types import GeometryConfig, testing_geometry
-from .ops import cuda_kernels as ck
 from .ops import goldilocks as gl
 from .prover import layers as ly
 from .prover import plonkish as pk
 from .prover import scheduler as sch
+from .utils import tracing
 from .utils.data_source import InMemoryDataSource
 from .vm import isa
 from .vm.environment import (DefaultPrecompilesProcessor, InMemoryEventSink,
@@ -64,38 +62,6 @@ class BlockProvingResult:
     recursion_rigs: Dict = dataclasses.field(default_factory=dict)
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
     tower_stats: Dict = dataclasses.field(default_factory=dict)
-
-
-class _Stopwatch:
-    """Host seconds of the steps of one task, each closed after a
-    synchronise of a CUDA device (so queued device work is inside it); the
-    task's peak device memory and kernel launches on a CUDA device."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.out: Dict[str, float] = {}
-        if self.cuda:
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-        self.device = device
-        self.launches = dict(ck.LAUNCHES)
-        self.t = time.perf_counter()
-
-    def lap(self, name: str):
-        if self.cuda:
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name + "_s"] = self.out.get(name + "_s", 0.0) + now - self.t
-        self.t = now
-
-    def done(self, **shape) -> Dict:
-        out = dict(shape, **self.out)
-        if self.cuda:
-            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
-                self.device)
-            out["launches"] = {k: ck.LAUNCHES[k] - self.launches.get(k, 0)
-                               for k in ck.LAUNCHES}
-        return out
 
 
 def _ir_shape(ir: pk.PlonkishIR, builder=None) -> Dict:
@@ -223,7 +189,8 @@ def run_block(code: Sequence[isa.Instruction], entry_address: int = 0xAA,
         n = artifacts.per_circuit[base_t].num_instances
         return n > eff_arity and n % eff_arity != 0
 
-    def _leaf_rig(base_t: int, k: int, padded: bool, watch: _Stopwatch):
+    def _leaf_rig(base_t: int, k: int, padded: bool,
+                  watch: tracing.Stopwatch):
         key = ("leaf", base_t, k, padded)
         if key not in rigs:
             sd = ly.base_setup_for_type(base_t, geometry, device=device)
@@ -238,7 +205,8 @@ def run_block(code: Sequence[isa.Instruction], entry_address: int = 0xAA,
             rigs[key] = (b, lay, built, setup, sd)
         return rigs[key]
 
-    def _node_rig(base_t: int, k: int, child_ir, watch: _Stopwatch):
+    def _node_rig(base_t: int, k: int, child_ir,
+                  watch: tracing.Stopwatch):
         key = ("node", base_t, k, id(child_ir))
         if key not in rigs:
             nb, nlay = nc.synthesize_node(child_ir, rec_cfg, arity=k)
@@ -261,7 +229,7 @@ def run_block(code: Sequence[isa.Instruction], entry_address: int = 0xAA,
         return proof
 
     def _prove_leaf(task, deps):
-        watch = _Stopwatch(device)
+        watch = tracing.Stopwatch(device)
         lw = task.payload
         base_t = lw.base_circuit_type
         chunk = [deps[d.key()]["proof"] for d in task.deps]
@@ -306,13 +274,14 @@ def run_block(code: Sequence[isa.Instruction], entry_address: int = 0xAA,
         (synthesis is deterministic in (base ir, cfg, arity, raggedness))."""
         if ("leaf_final", base_t) not in rigs:
             _b, _lay, built, setup, _sd = _leaf_rig(
-                base_t, k, _type_is_ragged(base_t), _Stopwatch(device))
+                base_t, k, _type_is_ragged(base_t),
+                tracing.Stopwatch(device))
             assert setup.vk() == list(vk), \
                 "resumed leaf VK does not match the re-synthesized circuit"
             rigs[("leaf_final", base_t)] = (built.ir, setup.vk())
 
     def _prove_node(task, deps):
-        watch = _Stopwatch(device)
+        watch = tracing.Stopwatch(device)
         base_t = task.circuit_type
         children = [deps[d.key()] for d in task.deps]
         child_kind = task.deps[0].kind
@@ -358,10 +327,11 @@ def run_block(code: Sequence[isa.Instruction], entry_address: int = 0xAA,
                 _ensure_leaf_final(t, leaf_rec["arity"], leaf_rec["vk"])
                 child_ir, _ = rigs[("leaf_final", t)]
                 _nb, _nl, nbuilt, nsetup = _node_rig(
-                    t, node_recs[t]["arity"], child_ir, _Stopwatch(device))
+                    t, node_recs[t]["arity"], child_ir,
+                    tracing.Stopwatch(device))
                 assert nsetup.vk() == list(node_recs[t]["vk"])
                 rigs[("node_final", t)] = (nbuilt.ir, nsetup.vk())
-        watch = _Stopwatch(device)
+        watch = tracing.Stopwatch(device)
         shapes = [(rigs[("node_final", t)][0], rec_cfg) for t in real_types]
         blob_shapes = [(s["ir"], s["cfg"]) for s in eip4844_slots]
         blob_vks = [s["vk"] for s in eip4844_slots]
@@ -413,7 +383,7 @@ def run_block(code: Sequence[isa.Instruction], entry_address: int = 0xAA,
             ctype = task.circuit_type
             instances, challenges, cap = real_payloads[ctype]
             if task.index < len(instances):
-                watch = _Stopwatch(device)
+                watch = tracing.Stopwatch(device)
                 inst_w = instances[task.index]
                 proof = ly.prove_base_instance(ctype, inst_w, challenges,
                                                cap, source, device)

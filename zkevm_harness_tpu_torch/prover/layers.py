@@ -17,8 +17,12 @@ the JAX package's `harness.py` dispatch over the payloads
 `RECURSION_REGISTRY` (the JAX package's stand-ins),
 `create_recursive_layer_setup_data`, `prove_recursion_layer_circuit`,
 `verify_recursion_layer_proof`, and the leaf queue-segment proofs
-(`prove_leaf_queue_segment`, `verify_leaf_queue_segment`). The
-compression layers are not ported yet.
+(`prove_leaf_queue_segment`, `verify_leaf_queue_segment`). The blob branch
+(`create_eip4844_setup_data`, `prove_eip4844`, `verify_eip4844`) and the
+compression layers (`CompressionSetup`, `compression_engine_config`,
+`create_compression_layer_setup_data`, `prove_compression_layer_circuit`,
+`verify_compression_layer_proof`, `CompressionChain`), Goldilocks-hashed
+only: the BN254-hashed compression for the wrapper is not ported yet.
 
 `prove_*_instance` builds the witness inside a `layers.witness` span of
 utils/tracing.py (the witness fill time of a traced run) and checks the
@@ -40,6 +44,7 @@ from typing import Callable, Dict, Optional, Tuple
 from ..circuits import decommitter_circuit as cdcirc
 from ..circuits import decommitts_sorter_circuit as dscirc
 from ..circuits import ecrecover_circuit as eccirc
+from ..circuits import eip4844_circuit as e4
 from ..circuits import events_sorter_circuit as ecirc
 from ..circuits import ffarith as ffmod
 from ..circuits import keccak_circuit as kcirc
@@ -53,10 +58,12 @@ from ..circuits import ram_permutation_circuit as rcirc
 from ..circuits import sha256_circuit as shcirc
 from ..circuits import storage_application_circuit as sappcirc
 from ..circuits import storage_sorter_circuit as sscirc
+from ..circuits import verifier_circuit as vc
 from ..circuits.types import (BASE_LAYER_PROOF_CONFIG,
+                              COMPRESSION_PROOF_CONFIGS,
                               RECURSION_LAYER_PROOF_CONFIG,
-                              BaseLayerCircuitType, ProofSystemConfig,
-                              base_capacity)
+                              BaseLayerCircuitType, CompressionMode,
+                              ProofSystemConfig, base_capacity)
 from ..ops import goldilocks as gl
 from ..utils import tracing
 from . import plonkish as pk
@@ -1050,3 +1057,207 @@ def verify_base_instance(ctype: int, inst_w, challenges, capacity: int,
     against the payload's first."""
     return BASE_CIRCUITS[ctype].verify(inst_w, challenges, capacity, proof,
                                        device)
+
+
+# -- EIP-4844 (the blob branch) ----------------------------------------------
+
+def create_eip4844_setup_data(n_elements: int = 4096, limb_bits: int = 8,
+                              psc: ProofSystemConfig = BASE_LAYER_PROOF_CONFIG,
+                              source=None, device=None):
+    """The blob-fold circuit's setup at `n_elements` chunks (the reference's
+    prover_utils.rs eip4844 surface) and its program. `source` is accepted
+    for the JAX package's signature (its data sources keep no blob VK).
+    `device=None` means the CUDA card.
+
+    Raises ValueError where the engine config's final FRI size is not below
+    the circuit's LDE size (16 elements at u8 limbs is a 2^8-row circuit,
+    an LDE of 512 points at rate 2): FRI would not fold, which the FRI
+    verifier rejects and the in-circuit verifier cannot express. The caller
+    picks a config that folds (`full_chain.prove_block_full_chain`'s
+    `blob_cfg`)."""
+    device = gl.resolve_device(device)
+    key = ("eip4844", n_elements, limb_bits, str(device)) + _cfg_key()
+    if key not in _SETUP_CACHE:
+        prog = e4.build_eip4844_program(n_elements, limb_bits=limb_bits)
+        cfg = _engine_config(psc)
+        n_comm = cfg.rate << prog.layout.log_n
+        if cfg.final_fri_size >= n_comm:
+            raise ValueError(
+                f"final FRI size {cfg.final_fri_size} does not fold the "
+                f"blob circuit's {n_comm}-point LDE ({n_elements} elements)")
+        ir, setup = ffmod.ff_setup(prog.layout, cfg, device=device)
+        sd = SetupData(ir=ir, setup=setup, vk=setup.vk(), config=cfg)
+        _SETUP_CACHE[key] = (sd, prog)
+    return _SETUP_CACHE[key]
+
+
+def prove_eip4844(elements, x: int, n_elements: int = 4096,
+                  limb_bits: int = 8, source=None, device=None):
+    """Prove the blob-opening fold for one blob (reference: prove_eip4844,
+    src/prover_utils.rs eip4844 surface)."""
+    device = gl.resolve_device(device)
+    sd, prog = create_eip4844_setup_data(n_elements, limb_bits,
+                                         source=source, device=device)
+    inst = e4.instance_inputs(elements, x, device=device)
+    return _prove_checked(
+        sd, lambda: e4.eip4844_witness(prog, sd.ir, inst, device=device),
+        e4.expected_public_inputs(prog, inst), "eip4844", device)
+
+
+def verify_eip4844(elements, x: int, proof, n_elements: int = 4096,
+                   limb_bits: int = 8, vk=None, device=None) -> bool:
+    device = gl.resolve_device(device)
+    sd, prog = create_eip4844_setup_data(n_elements, limb_bits,
+                                         device=device)
+    inst = e4.instance_inputs(elements, x, device=device)
+    return _verify_checked(sd, e4.expected_public_inputs(prog, inst), proof,
+                           vk, device)
+
+
+# -- compression layers: in-circuit verifier proofs ---------------------------
+#
+# Mode k's circuit verifies the previous layer's proof in-circuit
+# (reference: aux_layer/compression_modes/mode_{1..5}.rs and the
+# create/prove/verify_compression_layer_* surface, prover_utils.rs:566-711).
+# The circuit is the synthesized verifier (circuits/verifier_circuit.py);
+# mode 1's inner proof is the scheduler's, mode k > 1's is mode k-1's. Each
+# function takes an optional `watch` (a `tracing.Stopwatch`) that closes a
+# lap after each step: synthesis, finalize, setup, fill, prove.
+
+@dataclasses.dataclass
+class CompressionSetup:
+    sd: SetupData
+    builder: object
+    layout: object
+
+
+def compression_engine_config(mode: int) -> pk.PlonkishConfig:
+    return _engine_config(COMPRESSION_PROOF_CONFIGS[CompressionMode(mode)])
+
+
+def _lap(watch, name: str):
+    if watch is not None:
+        watch.lap(name)
+
+
+def create_compression_layer_setup_data(
+        mode: int, inner_ir: pk.PlonkishIR, inner_cfg: pk.PlonkishConfig,
+        outer_cfg: Optional[pk.PlonkishConfig] = None, device=None,
+        watch=None) -> CompressionSetup:
+    """`device=None` means the CUDA card."""
+    device = gl.resolve_device(device)
+    outer_cfg = outer_cfg or compression_engine_config(mode)
+    key = ("compression", mode, inner_ir.log_n, inner_ir.num_witness,
+           inner_cfg.rate, inner_cfg.cap_size, inner_cfg.num_queries,
+           inner_cfg.final_fri_size, outer_cfg.rate, outer_cfg.num_queries,
+           outer_cfg.cap_size, outer_cfg.final_fri_size, str(device))
+    if key not in _SETUP_CACHE:
+        b, lay = vc.synthesize_verifier(inner_ir, inner_cfg, slots=8)
+        _lap(watch, "synthesis")
+        built = b.finalize()
+        _lap(watch, "finalize")
+        setup = built.setup(outer_cfg, device=device)
+        _lap(watch, "setup")
+        sd = SetupData(ir=built.ir, setup=setup, vk=setup.vk(),
+                       config=outer_cfg)
+        _SETUP_CACHE[key] = CompressionSetup(sd=sd, builder=b, layout=lay)
+    return _SETUP_CACHE[key]
+
+
+def prove_compression_layer_circuit(
+        mode: int, inner_ir: pk.PlonkishIR, inner_cfg: pk.PlonkishConfig,
+        inner_vk, inner_proof,
+        outer_cfg: Optional[pk.PlonkishConfig] = None, device=None,
+        watch=None):
+    device = gl.resolve_device(device)
+    cs = create_compression_layer_setup_data(mode, inner_ir, inner_cfg,
+                                             outer_cfg, device, watch)
+    asg = vc.verifier_assignments(cs.layout, inner_vk, inner_proof)
+    witness = cs.builder.fill_witness(asg, device=device)
+    _lap(watch, "fill")
+    proof = pk.prove(cs.sd.ir, cs.sd.setup, witness, cs.sd.config,
+                     device=device)
+    del witness
+    _lap(watch, "prove")
+    expected = vc.verifier_public_inputs(inner_vk, inner_proof)
+    assert [int(v) for v in proof.public_inputs] == expected, \
+        "compression PI mismatch (inner vk + inner public inputs)"
+    return proof
+
+
+def verify_compression_layer_proof(
+        mode: int, inner_ir: pk.PlonkishIR, inner_cfg: pk.PlonkishConfig,
+        proof, vk=None, expected_inner_vk=None,
+        outer_cfg: Optional[pk.PlonkishConfig] = None,
+        device=None) -> bool:
+    device = gl.resolve_device(device)
+    cs = create_compression_layer_setup_data(mode, inner_ir, inner_cfg,
+                                             outer_cfg, device)
+    if expected_inner_vk is not None:
+        k = len(expected_inner_vk)
+        if [int(v) for v in proof.public_inputs[:k]] != \
+                [int(v) % gl.P for v in expected_inner_vk]:
+            return False
+    return pk.verify(cs.sd.ir, vk if vk is not None else cs.sd.vk, proof,
+                     cs.sd.config, device=device)
+
+
+class CompressionChain:
+    """Pluggable prove/verify pair for
+    compression.compute_compression_circuits where every mode is a real
+    proof of verification of the previous layer. `stats[mode]` holds the
+    shape and the seconds of synthesis, finalize, setup, fill, prove and
+    verify of each mode this chain proved (setup steps only where the setup
+    was not cached), and, on a CUDA device, the peak memory and launches of
+    its setup and prove."""
+
+    def __init__(self, scheduler_ir: pk.PlonkishIR,
+                 scheduler_cfg: pk.PlonkishConfig, scheduler_vk,
+                 outer_cfgs: Optional[Dict[int, pk.PlonkishConfig]] = None,
+                 wrapper_mode: Optional[int] = None, device=None):
+        if wrapper_mode is not None:
+            # the BN254-hashed final mode (Bn256 Poseidon2 trees and
+            # transcript) is not ported yet
+            raise NotImplementedError(
+                "compression for the wrapper (wrapper_mode) waits for the "
+                "BN254-hashed half of ROADMAP A7")
+        self.device = gl.resolve_device(device)
+        self._inner: Dict[int, Tuple] = {
+            1: (scheduler_ir, scheduler_cfg, scheduler_vk)}
+        self._outer_cfgs = outer_cfgs or {}
+        self.stats: Dict[int, Dict] = {}
+
+    def _outer(self, mode: int) -> Optional[pk.PlonkishConfig]:
+        return self._outer_cfgs.get(mode)
+
+    def prove_fn(self, mode: int, prev_proof):
+        ir, cfg, vk = self._inner[mode]
+        watch = tracing.Stopwatch(self.device)
+        cs = create_compression_layer_setup_data(
+            mode, ir, cfg, self._outer(mode), self.device, watch)
+        proof = prove_compression_layer_circuit(
+            mode, ir, cfg, vk, prev_proof, self._outer(mode), self.device,
+            watch)
+        self.stats[mode] = watch.done(
+            log_n=cs.sd.ir.log_n, width=cs.sd.ir.num_witness,
+            public_inputs=len(cs.sd.ir.public_input_cells),
+            gates=cs.builder.num_gates,
+            permutations=len(cs.builder.perms))
+        self._inner[mode + 1] = (cs.sd.ir, cs.sd.config, cs.sd.vk)
+        return proof, cs.sd.vk
+
+    def verify_fn(self, mode: int, proof, vk) -> bool:
+        ir, cfg, inner_vk = self._inner[mode]
+        watch = tracing.Stopwatch(self.device)
+        ok = verify_compression_layer_proof(
+            mode, ir, cfg, proof, vk, expected_inner_vk=inner_vk,
+            outer_cfg=self._outer(mode), device=self.device)
+        watch.lap("verify")
+        if mode in self.stats:  # the verify after the prove
+            self.stats[mode].setdefault("verify_s", watch.out["verify_s"])
+        return ok
+
+    def final_shape(self, final_mode: int):
+        """(ir, cfg, vk) of the final mode's own circuit (populated by
+        prove_fn(final_mode, ...))."""
+        return self._inner[final_mode + 1]

@@ -16,6 +16,10 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import torch
+
+from ..ops import cuda_kernels as ck
+
 
 class Tracer:
     def __init__(self, enabled: Optional[bool] = None):
@@ -80,3 +84,36 @@ def span(name: str, **attrs):
 
 def count(name: str, value: float = 1):
     GLOBAL.count(name, value)
+
+
+class Stopwatch:
+    """Host seconds of the steps of one task, each closed after a
+    synchronise of a CUDA device (so queued device work is inside it); the
+    task's peak device memory and kernel launches on a CUDA device."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.out: Dict[str, float] = {}
+        if self.cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        self.device = device
+        self.launches = dict(ck.LAUNCHES)
+        self.t = time.perf_counter()
+
+    def lap(self, name: str):
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name + "_s"] = self.out.get(name + "_s", 0.0) + now - self.t
+        self.t = now
+
+    def done(self, **shape) -> Dict:
+        out = dict(shape, **self.out)
+        if self.cuda:
+            out["max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated(self.device)
+            out["launches"] = {k: ck.LAUNCHES[k]
+                               - self.launches.get(k, 0)
+                               for k in ck.LAUNCHES}
+        return out
