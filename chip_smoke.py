@@ -8,7 +8,9 @@
                                      # circuits, the whole block's 13 base
                                      # types at production geometry, then
                                      # its full chain over 8 and 7: tower,
-                                     # a blob, compression, SNARK wrapper
+                                     # a blob, compression for the wrapper
+                                     # and the "binding" SNARK, then mode
+                                     # 1 at LDE 32 and the "pi" SNARK
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -41,9 +43,11 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                geometry (GeometryConfig() capacities, 50 queries): the
                production VKs of types 8, 11, 12, 9 and 4 equal
                setup/setup/base_layer/vk_N.json; the block's one instance of
-               each of types 8, 11, 9 and 4 is decomposed, proved,
-               verified, its public inputs checked, and a tampered public
-               input and OOD value rejected; launch counters of this phase
+               each of types 8, 11, 9 and 4 is decomposed, and those of 8,
+               11 and 9 proved, verified, their public inputs checked, and
+               a tampered public input and OOD value rejected (type 4's
+               proof at this geometry is phase `block`'s); launch counters
+               of this phase
   11. hashes_golden  the first instance of each hash circuit of the small
                hash block (keccak 5, SHA-256 6, L1-messages hasher 13, code
                decommitter 3, decommitments sorter 2) proved on the card
@@ -52,10 +56,12 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                callees, keccak and SHA-256 precompile calls, L1 messages) at
                production geometry: the production VKs of types 2, 3, 6 and
                13 equal setup/setup/base_layer/vk_N.json (type 5's digest
-               printed); every instance of types 5, 6, 13, 3 and 2 decomposed,
-               proved, verified, public inputs checked (the hasher's digest is
-               keccak256 of the L1 messages, each decommitter's the SHA-256
-               in its versioned hash, the round functions' final
+               printed); every instance of types 5, 6, 13, 3 and 2
+               decomposed, the instance of 5, 6, 13 and 2 and the first of
+               the four of 3 proved, verified, public inputs checked (the
+               hasher's digest is keccak256 of the L1 messages, the
+               decommitter's the SHA-256 in its versioned hash, the round
+               functions' final
                accumulators in the last PI lanes); tampered copies of the
                first instance of each rejected; launch counters of this
                phase
@@ -96,15 +102,30 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                test_artifacts/wrap_blob_*); mode proofs with an inner
                public input changed refused by the STARK verifier; the
                native MSMs ran
-  19. tower    the whole block's full chain through
+  19. fw_golden  made on the card, equal to the JAX package's bytes
+               (tools/gen_fw_golden.py): the queue_ir(5) stand-in's
+               for-wrapper proof (Poseidon2-BN254 trees and transcript, Fr
+               VK), the "full" SNARK statement over it (selectors, wiring,
+               public gates and assignment digests equal
+               test_artifacts/fw_full_statement.json, every gate holding),
+               compression mode 1 for the wrapper over the golden tower's
+               scheduler and the "binding" SNARK over its Fr VK; a changed
+               public input, cap digest, OOD value and opening refused by
+               both the STARK verifier and the statement's gate check; K3
+               launched
+  20. tower    the whole block's full chain through
                full_chain.prove_block_full_chain at GeometryConfig(): base,
                leaf and node proofs of types 8 and 7 and the scheduler at
                production parameters (rate 2, cap 16, 50 queries, final FRI
                size 512), the scheduler verifying one 496-byte blob's fold
                proof (KzgSettings.testing(16), its final FRI size 256 so
                that it folds) in a third slot, then
-               compression mode 1 (LDE 32, cap 16, 40 queries, final 32)
-               and the "pi" BN254 PLONK wrapper; each proof verified with
+               compression mode 1 for the wrapper (rate 2, cap 16, 40
+               queries, final 32; trees and transcript Poseidon2 over BN254
+               Fr, the trees on K3) and the "binding" BN254 PLONK wrapper
+               over its Fr VK; then a second wrap of the same scheduler
+               proof, compression mode 1 at LDE 32 and the "pi" wrapper;
+               each proof verified with
                its expected public inputs; each leaf tail is its type's
                recursion-queue tail; the scheduler proved twice to equal
                bytes; a tampered leaf proof leaves gates of the node
@@ -112,22 +133,31 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                verify; the block commitment binds the blob's output hash;
                mode 1's public inputs are the scheduler's VK and public
                inputs, and with one of the scheduler's public inputs
-               changed the STARK verifier refuses it; the SNARK's
-               public input packs the scheduler's and a wrong one is
-               refused; per proof its shape, the seconds of synthesis,
+               changed the STARK verifier refuses it (both modes); the
+               SNARKs' public input packs the scheduler's and a wrong one
+               (or another for-wrapper VK) is refused; with --out, the
+               for-wrapper proof, its VK and a summary written into
+               fw_production/ beside that file; per proof its shape, the
+               seconds of synthesis,
                finalize, fill, setup, prove and verify, its peak memory and
                launches; with --profile the chain once more under the
                profiler for the device's idle share
-  20. eip4844  the blob circuit at full width (4,096 elements, u8 limbs)
+  21. eip4844  the blob circuit at full width (4,096 elements, u8 limbs)
                at the chain's base config, elements and point from a seed:
                setup, prove, verify with the expected public inputs; the
                STARK verifier refuses the public inputs of a tampered
                element and opening value, and a tampered OOD value
-  21. kernels_tower, kernels_wrap  gl_mul and poseidon2_permute against
+  22. kernels_tower, kernels_wrap  gl_mul and poseidon2_permute against
                their plain versions and timed at the tower's shapes, at
                compression mode 1's LDE and at the 4,096-element blob
                circuit's
-  22. kernels  one line {"kernels": [...], "helpers": [...]}
+  23. kernels_fw  K3 (bn254_hash_rows, bn254_hash_pairs) against its plain
+               version (exact Python ints) at 1,024 rows of mode 1's 72
+               columns and 2,048 pairs, timed at the production for-wrapper
+               tree's 2^18 rows and 2^17 pairs
+  24. kernels  one line {"kernels": [...], "helpers": [...]}; K3's entries
+               replace no TPU kernel (`replaces` names the JAX package's
+               host Python hash they take over, `tpu_kernel` is null)
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises and
 the run exits non-zero.
@@ -169,6 +199,14 @@ OPS_ADD = 8
 # layers (62 each), 96 + 22 round constants, 22 internal sums (23 each)
 P2_MULS = 8 * 12 * 4 + 22 * (4 + 12)
 P2_ADDS = 9 * 62 + 96 + 22 + 22 * 23
+# Integer-ALU instructions (IMADs apart, as above) of one Poseidon2-BN254
+# permutation with its two conversions into Montgomery form and one out: the
+# dynamic count of `hash_pairs_kernel` in the SASS of `--sass` (sm_90a, CUDA
+# 12.8; `sass_dynamic_alu`, printed as `bn254_ops_per_permutation`), its
+# three round loops (4, 56 and 4 trips) counted once per trip: 67,512
+# IADD3, 64,991 ISETP, 37,670 SEL and the rest, beside 134,897 IMADs. A row
+# of `bn254_hash_rows` costs about one of these per rate-2 block.
+BN254_OPS_PER_PERMUTATION = 171322
 GOLDILOCKS_P = (1 << 64) - (1 << 32) + 1
 
 
@@ -229,6 +267,45 @@ def sass_counts(ck, out_dir):
             counts[func][op] = counts[func].get(op, 0) + 1
     return {f: dict(sorted(c.items(), key=lambda kv: -kv[1]), total=sum(
         c.values())) for f, c in counts.items()}
+
+
+def sass_dynamic_alu(sass_path, func_part, trips):
+    """Integer-ALU instructions (IMADs apart) that one thread of the kernel
+    whose name contains `func_part` executes, from its SASS: the
+    instructions of each loop (a backward branch and its target) counted
+    once per trip, `trips` giving the loops' trip counts in address order,
+    the rest once. None when the kernel has another number of loops."""
+    alu = ("IADD3", "ISETP", "SEL", "LOP3", "SHF", "IADD", "VIADD", "LEA",
+           "PLOP3", "P2R", "R2P", "PRMT", "IMNMX", "IABS", "POPC", "FLO")
+    with open(sass_path) as f:
+        text = f.read()
+    body = next(part for part in text.split("Function :")[1:]
+                if func_part in part.split("\n", 1)[0])
+    ins = []
+    for line in body.splitlines():
+        line = line.strip()
+        parts = line.split("*/", 1)
+        if not line.startswith("/*") or len(parts) < 2:
+            continue
+        words = parts[1].strip().split()
+        if not words or words[0].startswith("/*"):
+            continue
+        pred = words[0].startswith("@")
+        op = (words[1] if pred else words[0]).rstrip(";").split(".")[0]
+        target = None
+        if op == "BRA":
+            target = int((words[2] if pred else words[1]).rstrip(";"), 16)
+        ins.append((int(parts[0][2:], 16), op, target))
+    loops = sorted((t, a) for a, op, t in ins
+                   if t is not None and t < a)
+    if len(loops) != len(trips):
+        return None
+    total = 0
+    for addr, op, _t in ins:
+        if op in alu:
+            total += next((trip for (lo, hi), trip in zip(loops, trips)
+                           if lo <= addr <= hi), 1)
+    return total
 
 
 def device_rows(fn, host_too=True):
@@ -583,7 +660,8 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     from zkevm_harness_tpu_torch.prover import compression as cmp
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
-    from zkevm_harness_tpu_torch.utils import kzg, native, serde
+    from zkevm_harness_tpu_torch.utils import kzg, native, serde, tracing
+    from zkevm_harness_tpu_torch.utils import poseidon2_bn254 as p2b
     from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
     from zkevm_harness_tpu_torch.vm import isa
 
@@ -633,6 +711,8 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     if not native.have_native() or not native.have_msm():
         raise SystemExit("the native library or its MSM did not load")
     wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded)
+    launches_fw = fw_golden_phase(dev, phase, gres, gcfg, golden_json,
+                                  rounded)
     del gres, gsrc
     ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
@@ -656,8 +736,8 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
         return fc.prove_block_full_chain(
             code, chain_types=spot, geometry=geo, base_cfg=bcfg,
             recursion_cfg=bcfg, compression_layers=1, contracts=contracts,
-            snark_mode="pi", blobs=[blob], blob_kzg_settings=settings,
-            blob_cfg=blob_cfg, device=dev)
+            for_wrapper=True, snark_mode="binding", blobs=[blob],
+            blob_kzg_settings=settings, blob_cfg=blob_cfg, device=dev)
 
     ck.reset_launches()
     t_path = time.time()
@@ -665,7 +745,8 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     torch.cuda.synchronize()
     chain_s = time.time() - t_path
     launches_tower = dict(ck.LAUNCHES)
-    for name in ("gl_mul", "poseidon2_permute"):
+    for name in ("gl_mul", "poseidon2_permute", "bn254_hash_rows",
+                 "bn254_hash_pairs"):
         if launches_tower[name] <= 0:
             raise SystemExit(f"full chain launched {name} no time")
     msm_runs = {k: native.MSM_CALLS[k] - msm_before[k] for k in msm_before}
@@ -738,34 +819,108 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     if not all(commitment.values()):
         raise SystemExit(f"tower: the block commitment does not bind the "
                          f"blob's output hash: {commitment}")
-    # compression mode 1 over the scheduler: verified, bound to the
-    # scheduler's VK and public inputs; with one of the scheduler's public
-    # inputs changed (past the VK prefix) the STARK verifier refuses it
+    # compression mode 1 for the wrapper over the scheduler: Fr caps,
+    # verified, bound to the scheduler's VK and public inputs; with one of
+    # the scheduler's public inputs changed (past the VK prefix) the STARK
+    # verifier refuses it. The "binding" SNARK verifies against its Fr VK
+    # and the scheduler's public inputs.
     final = chain.final["final_proof"]
+    fw_vk = [int(v) for v in chain.final["final_vk"]]
     sched_vk = [int(v) for v in chain.scheduler.vk]
-    verifier = ly.CompressionChain(chain.scheduler.ir, chain.scheduler.cfg,
-                                   chain.scheduler.vk, device=dev)
-    mode1 = ly.create_compression_layer_setup_data(
-        1, chain.scheduler.ir, chain.scheduler.cfg, device=dev).sd
-    bad_final = pi_bumped(final, len(sched_vk))
+    fw = ly.create_compression_for_wrapper_setup_data(
+        1, chain.scheduler.ir, chain.scheduler.cfg, device=dev)
     snark_proof, snark_vk = chain.snark["proof"], chain.snark["vk"]
+    fr_ok = all(0 <= v < sw.R for v in fw_vk) and all(
+        0 <= int(v) < sw.R for cap in (final.witness_cap, final.stage2_cap,
+                                       final.quotient_cap) for v in cap)
     wrap = {
-        "compression_verifies": verifier.verify_fn(1, final,
-                                                   chain.final["final_vk"]),
-        "compression_pis_are_scheduler_vk_and_pis":
+        "for_wrapper_caps_are_fr": fr_ok and len(fw_vk) == 16,
+        "for_wrapper_verifies": ly.verify_compression_for_wrapper_proof(
+            1, chain.scheduler.ir, chain.scheduler.cfg, final, fw_vk,
+            expected_inner_vk=sched_vk, device=dev),
+        "for_wrapper_pis_are_scheduler_vk_and_pis":
             [int(v) for v in final.public_inputs] ==
             sched_vk + [int(v) for v in srec["proof"].public_inputs],
-        "compression_tampered_rejected": not pk.verify(
-            mode1.ir, mode1.vk, bad_final, mode1.config, device=dev),
-        "snark_public_input_packs_scheduler_pi":
-            int(snark_proof.public_inputs[-1]) ==
+        "for_wrapper_tampered_rejected": not pk.verify(
+            fw.sd.ir, fw_vk, pi_bumped(final, len(sched_vk)), fw.sd.config,
+            device=dev, backend=fw.backend),
+        "binding_public_input_packs_scheduler_pi":
+            int(snark_proof.public_inputs[len(fw_vk) + 4]) ==
             cmp.compress_stark_pi_to_snark_pi(sched_pi) ==
             int(chain.final["snark_public_input"]),
-        "snark_verifies": sw.verify_wrapped_proof(
-            snark_vk, snark_proof, expected_scheduler_pi=sched_pi),
-        "snark_other_pi_rejected": not sw.verify_wrapped_proof(
+        "binding_verifies": sw.verify_binding_proof(
+            snark_vk, snark_proof, expected_fw_vk=fw_vk,
+            expected_scheduler_pi=sched_pi),
+        "binding_other_fw_vk_rejected": not sw.verify_binding_proof(
             snark_vk, snark_proof,
+            expected_fw_vk=[fw_vk[0] + 1] + fw_vk[1:],
+            expected_scheduler_pi=sched_pi),
+        "binding_other_pi_rejected": not sw.verify_binding_proof(
+            snark_vk, snark_proof, expected_fw_vk=fw_vk,
             expected_scheduler_pi=[(v + 1) % P for v in sched_pi])}
+    # the for-wrapper proof and its VK, for the JAX package's verifier
+    # (tests/test_torch_for_wrapper.py, `slow`), beside the --out file
+    if args.out:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(args.out)),
+                               "fw_production")
+        os.makedirs(out_dir, exist_ok=True)
+        summary = dict(
+            scheduler_vk=sched_vk, scheduler_pi=sched_pi,
+            scheduler_config=dataclasses.asdict(bcfg),
+            blob_config=dataclasses.asdict(blob_cfg),
+            block=golden.WHOLE_BLOCK, spot_types=list(spot), kzg_domain=16,
+            blob=blob.hex(), scheduler_shape=[chain.scheduler.ir.log_n,
+                                              chain.scheduler.ir.num_witness],
+            aux_values=[int(v) for v in sc_circ.scheduler_aux_values(
+                res.scheduler_witness)])
+        for name, obj in (("fw_production_vk.json", fw_vk),
+                          ("fw_production_proof.json",
+                           serde.proof_to_json(final)),
+                          ("fw_production_summary.json", summary)):
+            with open(os.path.join(out_dir, name), "w") as f:
+                json.dump(obj, f)
+    del fw
+    # the second wrap from the same scheduler proof: compression mode 1 at
+    # LDE 32 and the "pi" SNARK, as full_chain proves them without
+    # for_wrapper
+    t_wrap = time.time()
+    ck.reset_launches()
+    verifier = ly.CompressionChain(chain.scheduler.ir, chain.scheduler.cfg,
+                                   chain.scheduler.vk, device=dev)
+    out1 = cmp.wrap_proof(srec["proof"], sched_pi, cmp.WrapperConfig(1),
+                          verifier.prove_fn, verifier.verify_fn)
+    final1 = out1["final_proof"]
+    mode1 = ly.create_compression_layer_setup_data(
+        1, chain.scheduler.ir, chain.scheduler.cfg, device=dev).sd
+    watch = tracing.Stopwatch(dev)
+    wsetup = sw.wrapper_setup()
+    watch.lap("setup")
+    pi_proof = sw.wrap_scheduler_pi(wsetup, sched_pi)
+    watch.lap("prove")
+    pi_ok = sw.verify_wrapped_proof(wsetup.vk, pi_proof,
+                                    expected_scheduler_pi=sched_pi)
+    watch.lap("verify")
+    pi_snark_stats = watch.done(gates=wsetup.circuit.num_gates,
+                                n=wsetup.vk.n, mode="pi")
+    launches_pi_wrap = dict(ck.LAUNCHES)
+    pi_wrap_s = time.time() - t_wrap
+    wrap.update({
+        "compression_verifies": verifier.verify_fn(1, final1,
+                                                   out1["final_vk"]),
+        "compression_pis_are_scheduler_vk_and_pis":
+            [int(v) for v in final1.public_inputs] ==
+            sched_vk + [int(v) for v in srec["proof"].public_inputs],
+        "compression_tampered_rejected": not pk.verify(
+            mode1.ir, mode1.vk, pi_bumped(final1, len(sched_vk)),
+            mode1.config, device=dev),
+        "snark_public_input_packs_scheduler_pi":
+            int(pi_proof.public_inputs[-1]) ==
+            cmp.compress_stark_pi_to_snark_pi(sched_pi) ==
+            int(out1["snark_public_input"]),
+        "snark_verifies": pi_ok,
+        "snark_other_pi_rejected": not sw.verify_wrapped_proof(
+            wsetup.vk, pi_proof,
+            expected_scheduler_pi=[(v + 1) % P for v in sched_pi])})
     tamper = {"leaf_under_node": len(honest) == 0 and len(broken) > 0,
               "scheduler_public_input": not pk.verify(
                   sbuilt.ir, ssetup.vk(), bad_sched, bcfg, device=dev)}
@@ -774,19 +929,24 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                          f"{wrap}")
     tasks = {task_name(k): rounded(v) for k, v in res.tower_stats.items()}
     wrap_stats = {k: rounded(v) for k, v in chain.stats.items()}
-    mode1_shape = (chain.stats["compression_1"]["width"],
-                   chain.stats["compression_1"]["log_n"])
+    wrap_stats["pi_compression_1"] = rounded(verifier.stats[1])
+    wrap_stats["pi_snark"] = rounded(pi_snark_stats)
+    mode1_shape = (verifier.stats[1]["width"], verifier.stats[1]["log_n"])
     phase("tower", block=golden.WHOLE_BLOCK, spot_types=list(spot),
           config=golden.TOWER_CONFIG,
           blob_config=chain.stats["eip4844_0"]["config"],
           compression_config=dataclasses.asdict(
               ly.compression_engine_config(1)),
-          snark_mode="pi", blob_bytes=len(blob), kzg_domain=16,
+          for_wrapper_config=dataclasses.asdict(
+              ly.for_wrapper_engine_config(1)),
+          snark_modes=["binding (in the chain)", "pi (second wrap)"],
+          blob_bytes=len(blob), kzg_domain=16,
           cycles=res.cycles,
           instances={t: len(m.instances)
                      for t, m in res.circuit_makers.items()},
           timings={k: round(v, 3) for k, v in res.timings.items()},
           chain_s=round(chain_s, 3), tasks=tasks, wrap_tasks=wrap_stats,
+          pi_wrap_s=round(pi_wrap_s, 3), pi_wrap_launches=launches_pi_wrap,
           scheduler_pi=sched_pi, snark_public_input=str(
               chain.final["snark_public_input"]),
           scheduler_prove_warm_s=round(sched_warm_s, 3),
@@ -796,8 +956,9 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
           commitment_binds_blob=commitment, wrap_checks=wrap,
           tampered_rejected=tamper, native_msm_runs=msm_runs,
           launches=launches_tower)
+    launches_pi_wrap = dict(launches_pi_wrap)
     del res, src, rigs, sb, slay, sbuilt, ssetup, nb, nlay, chain, verifier
-    del final, bad_final, mode1
+    del final, final1, mode1
     ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
     if args.profile:
@@ -899,7 +1060,82 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
           timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                       for kk, vv in t.items()}
                   for k, t in timing_wrap.items()})
-    return launches_tower, launches_blob, timing_tower, timing_wrap
+
+    # -- kernels_fw: K3 against its plain version, timed at mode 1's shapes --
+    # the plain version is exact Python ints (seconds at these shapes): the
+    # check runs at 1,024 rows of mode 1's 72 columns and 2,048 pairs; the
+    # times at the production for-wrapper tree's shapes, its 2^18 leaves of
+    # 72 columns and the 2^17 pairs of its first level
+    rng = np.random.default_rng(254)
+    fr = sw.R
+
+    def fr_limbs(k):
+        words = rng.integers(0, 1 << 63, size=(k, 4), dtype=np.int64)
+        vals = [sum(int(w) << (63 * j) for j, w in enumerate(ws)) % fr
+                for ws in words.tolist()]
+        vals[:3] = [0, 1, fr - 1][:k]
+        return torch.from_numpy(p2b.to_limbs(vals))
+
+    def bn254_bound(perms):
+        ops = perms * BN254_OPS_PER_PERMUTATION
+        return ops / PEAK_INT_ALU_PER_S * 1e3, "operations"
+
+    def plain_once(fn, arg):
+        """The plain version's digests and host milliseconds (one call)."""
+        t = time.perf_counter()
+        out = fn(arg)
+        return out, (time.perf_counter() - t) * 1e3
+
+    timing_fw = {}
+    width, log_n = mode1_shape
+    rows = rand_field((width, 1024))
+    want, ms_plain_rows = plain_once(ck.bn254_hash_rows_plain, rows.cpu())
+    errs["bn254_hash_rows"] = check_equal(
+        "bn254_hash_rows mode-1 width", ck.bn254_hash_rows(rows),
+        want.to(dev))
+    pairs = fr_limbs(2 * 2048)
+    want, ms_plain_pairs = plain_once(ck.bn254_hash_pairs_plain, pairs)
+    errs["bn254_hash_pairs"] = check_equal(
+        "bn254_hash_pairs 2048", ck.bn254_hash_pairs(pairs.to(dev)),
+        want.to(dev))
+    perms_per_row = (-(-width // 3) + 1) // 2
+    check = {"bn254_hash_rows": ([width, 1024], rows, ms_plain_rows,
+                                 1024 * perms_per_row),
+             "bn254_hash_pairs": ([2 * 2048, 4], pairs.to(dev),
+                                  ms_plain_pairs, 2048)}
+    leaves = 2 << log_n  # rate 2
+    prod = {"bn254_hash_rows": ([width, leaves], rand_field((width, leaves)),
+                                leaves * perms_per_row,
+                                width * leaves * 8 + leaves * 32),
+            "bn254_hash_pairs": ([leaves, 4], fr_limbs(leaves).to(dev),
+                                 leaves // 2, leaves * 32 + leaves * 16)}
+    for name, fn in (("bn254_hash_rows", ck.bn254_hash_rows),
+                     ("bn254_hash_pairs", ck.bn254_hash_pairs)):
+        cshape, carg, cplain, cperms = check[name]
+        pshape, parg, pperms, pbytes = prod[name]
+        bound, by = bn254_bound(pperms)
+        bytes_ms = pbytes / PEAK_BYTES_PER_S * 1e3
+        timing_fw[name] = {
+            "shape": pshape, "permutations": pperms,
+            "ms": cuda_ms(lambda: fn(parg), 1, 5),
+            "bound_ms": max(bound, bytes_ms),
+            "bound_by": by if bound >= bytes_ms else "bytes",
+            "plain_ms": cplain, "plain_shape": cshape,
+            "check_ms": cuda_ms(lambda: fn(carg), 1, 5),
+            "check_permutations": cperms}
+        del parg
+    del rows, pairs
+    torch.cuda.empty_cache()
+    phase("kernels_fw", tolerance=0,
+          max_abs_err={k: errs[k] for k in ("bn254_hash_rows",
+                                            "bn254_hash_pairs")},
+          ops_per_permutation=BN254_OPS_PER_PERMUTATION,
+          timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                      for kk, vv in t.items()}
+                  for k, t in timing_fw.items()})
+    paths = {"full_chain": launches_tower, "pi_wrap": launches_pi_wrap,
+             "fw_golden": launches_fw, "eip4844": launches_blob}
+    return paths, timing_tower, timing_wrap, timing_fw
 
 
 def wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded):
@@ -1054,6 +1290,145 @@ def wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded):
           seconds=laps)
 
 
+def fw_tampered(proof, what):
+    """A copy of a for-wrapper proof with one value changed: an inner
+    public input, a digest of the witness cap, an OOD value or an opened
+    witness value."""
+    bad = copy.deepcopy(proof)
+    if what == "public_input":
+        bad.public_inputs[0] = (int(bad.public_inputs[0]) + 1) % GOLDILOCKS_P
+    elif what == "cap":
+        bad.witness_cap[0] = int(bad.witness_cap[0]) + 1
+    elif what == "ood":
+        c0, c1 = bad.ood_witness[0]
+        bad.ood_witness[0] = ((int(c0) + 1) % GOLDILOCKS_P, c1)
+    else:
+        idx = sorted(bad.openings["witness"])[0]
+        row = list(bad.openings["witness"][idx])
+        row[0] = (int(row[0]) + 1) % GOLDILOCKS_P
+        bad.openings["witness"][idx] = row
+    return bad
+
+
+FW_TAMPERS = ("public_input", "cap", "ood", "opening")
+
+
+def fw_golden_phase(dev, phase, gres, gcfg, golden_json, rounded):
+    """Phase `fw_golden`: made on the card, equal to the JAX package's bytes
+    (tools/gen_fw_golden.py): the for-wrapper proof of the `queue_ir(5)`
+    stand-in; the "full" SNARK statement over it (its digests equal the JAX
+    package's, every gate holds); compression mode 1 for the wrapper at
+    `for_wrapper_engine_config(1)` over the golden tower's scheduler proof
+    `gres` made; the "binding" SNARK over that mode's Fr VK and the
+    scheduler's public inputs. Four tampered copies of the stand-in proof
+    are refused by the STARK verifier and by the statement's gate check.
+    Returns the phase's launches."""
+    import torch
+
+    from zkevm_harness_tpu_torch import convert
+    from zkevm_harness_tpu_torch.circuits import queue_circuit as qc
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.ops import ntt as nt
+    from zkevm_harness_tpu_torch.prover import compression as cmp
+    from zkevm_harness_tpu_torch.prover import hash_backend as hb
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import serde
+    from zkevm_harness_tpu_torch.utils import snark_fri_verifier as sfv
+    from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
+
+    t0 = time.time()
+    laps = {}
+
+    def lap(name):
+        torch.cuda.synchronize()
+        laps[name + "_s"] = round(time.time() - t0 - sum(laps.values()), 3)
+
+    def same(stem, vk, proof):
+        if [int(v) for v in vk] != golden_json(f"{stem}_vk.json") or \
+                json.loads(json.dumps(serde.proof_to_json(proof))) != \
+                golden_json(f"{stem}_proof.json"):
+            raise SystemExit(f"fw_golden: {stem} differs from the golden "
+                             "JSON")
+
+    ck.reset_launches()
+    # 1. the stand-in for the wrapper (tests/test_snark_fri_verifier.py)
+    scfg = pk.PlonkishConfig(rate=2, cap_size=4, num_queries=2,
+                             final_fri_size=8)
+    qir = qc.queue_ir(5)
+    qsetup = qc.queue_setup(qir, scfg, device=dev)
+    backend = hb.Bn254Backend(dev)
+    tree = backend.commit_rows(nt.coset_lde(gl.concatenate(
+        [qsetup.const_cols, qsetup.sigma_cols, qsetup.table_cols], axis=0),
+        scfg.rate), scfg.cap_size)
+    vk = tree.cap
+    proof = pk.prove(qir, qsetup, qc.queue_witness(
+        qir, [[i + 1 for i in range(8)]], device=dev), scfg,
+        backend=backend, backend_setup=(vk, tree), device=dev)
+    same("fw_standin", vk, proof)
+    if not pk.verify(qir, vk, proof, scfg, device=dev, backend=backend):
+        raise SystemExit("fw_golden: the stand-in proof does not verify")
+    lap("standin")
+    # 2. the "full" statement over the card's stand-in proof
+    stats = sfv.gate_check_fw(qir, scfg, vk, proof)
+    b, lay, _circ = sfv.build_cached(qir, scfg, len(vk))
+    wires, pis = b.fill(sfv.fill_fw_assignments(lay, qir, scfg, vk, proof))
+    digests = convert.plonk_statement_digests(b, wires, pis)
+    want = golden_json("fw_full_statement.json")
+    if any(digests[k] != want[k] for k in digests) or \
+            [str(v) for v in pis] != want["public_inputs"]:
+        raise SystemExit("fw_golden: the full statement differs from the "
+                         "JAX package's")
+    tamper = {}
+    for what in FW_TAMPERS:
+        bad = fw_tampered(proof, what)
+        stark = not pk.verify(qir, vk, bad, scfg, device=dev,
+                              backend=backend)
+        try:
+            sfv.gate_check_fw(qir, scfg, vk, bad)
+            gates = False
+        except AssertionError:
+            gates = True
+        tamper[what] = {"stark_refused": stark, "gates_refused": gates}
+    if not all(all(v.values()) for v in tamper.values()):
+        raise SystemExit(f"fw_golden: a tampered proof passed: {tamper}")
+    lap("full_statement")
+    # 3. mode 1 for the wrapper over the golden tower's scheduler
+    sir, svk = gres.recursion_rigs[("scheduler",)]
+    srec = gres.source.get_scheduler_proof()
+    sched_pi = [int(v) for v in srec["scheduler_pi"]]
+    chain = ly.CompressionChain(sir, gcfg, svk, wrapper_mode=1, device=dev)
+    out = cmp.wrap_proof(srec["proof"], sched_pi, cmp.WrapperConfig(1),
+                         chain.prove_fn, chain.verify_fn)
+    same("fw_mode1", out["final_vk"], out["final_proof"])
+    lap("mode1")
+    # 4. the binding SNARK over mode 1's Fr VK
+    bsetup, bproof = sw.wrap_with_binding(out["final_vk"], sched_pi)
+    if convert.plonk_vk_to_json(bsetup.vk) != golden_json(
+            "fw_binding_snark_vk.json") or convert.plonk_proof_to_json(
+            bproof) != golden_json("fw_binding_snark_proof.json"):
+        raise SystemExit("fw_golden: the binding SNARK differs")
+    if not sw.verify_binding_proof(bsetup.vk, bproof,
+                                   expected_fw_vk=out["final_vk"],
+                                   expected_scheduler_pi=sched_pi):
+        raise SystemExit("fw_golden: the binding SNARK does not verify")
+    lap("binding")
+    launches = dict(ck.LAUNCHES)
+    for name in ("bn254_hash_rows", "bn254_hash_pairs"):
+        if launches[name] <= 0:
+            raise SystemExit(f"fw_golden launched {name} no time")
+    phase("fw_golden", vk_equal=True, proof_equal=True, verify=True,
+          standin_config=dataclasses.asdict(scfg),
+          mode1_config=dataclasses.asdict(ly.for_wrapper_engine_config(1)),
+          full_statement=dict(digests, gate_check=True,
+                              sections=stats.get("sections")),
+          tampered_rejected=tamper, mode1=rounded(chain.stats[1]),
+          binding_gates=bsetup.circuit.num_gates, binding_n=bsetup.vk.n,
+          seconds=laps, launches=launches)
+    return launches
+
+
 def eip4844_phase(dev, phase, bcfg, rounded):
     """Phase `eip4844`: the blob circuit at full width (4,096 elements, u8
     limbs) at the chain's base config, elements and point drawn from a
@@ -1156,7 +1531,9 @@ def main(argv=None) -> int:
                     help="write cuobjdump's SASS of the built libraries into "
                          "DIR and print each kernel's instruction counts")
     ap.add_argument("--out", default=None,
-                    help="also write all phase records to this JSON file")
+                    help="also write all phase records to this JSON file, "
+                         "and the production for-wrapper proof, its VK "
+                         "and a summary into fw_production/ beside it")
     args = ap.parse_args(argv)
     if args.log_n < 16:
         ap.error("--log-n must be at least 16")
@@ -1212,7 +1589,8 @@ def main(argv=None) -> int:
     records = []
 
     def phase(name, **fields):
-        rec = {"phase": name, **fields}
+        rec = {"phase": name, "at_s": round(time.time() - t_start, 1),
+               **fields}
         records.append(rec)
         emit(rec)
 
@@ -1232,7 +1610,12 @@ def main(argv=None) -> int:
         f"zkevm_harness_tpu_torch/csrc/{n}.cu" for n in ck.SOURCES])
 
     if args.sass:
-        phase("sass", kernels=sass_counts(ck, args.sass))
+        # K3's count behind BN254_OPS_PER_PERMUTATION: one pair hash is
+        # one permutation (round loops of 4, 56 and 4 trips)
+        phase("sass", kernels=sass_counts(ck, args.sass),
+              bn254_ops_per_permutation=sass_dynamic_alu(
+                  os.path.join(args.sass, "poseidon2_bn254.sass"),
+                  "hash_pairs_kernel", (4, 56, 4)))
 
     # -- 3. kernels against their plain versions ----------------------------
     def check_equal(name, got, want):
@@ -1497,7 +1880,8 @@ def main(argv=None) -> int:
     del proof_again
     if not ok:
         raise SystemExit("main path: proof does not verify")
-    for name in launches:
+    for name in ("gl_mul", "poseidon2_permute", "gl_add", "gl_sub",
+                 "gl_pow7"):
         if launches[name] <= 0:
             raise SystemExit(f"main path launched {name} no time")
 
@@ -1835,6 +2219,19 @@ def main(argv=None) -> int:
                         raise SystemExit(f"sorters: the production VK of "
                                          f"type {t} differs from "
                                          f"setup/setup/base_layer/vk_{t}.json")
+            if name == "demux":
+                # decomposed and its VK compared only (about 30 s of the
+                # script): phase `block` proves type 4 at the same geometry
+                # and VK
+                per_type[name] = {
+                    "circuit_type": ctype, "log_n": sd.ir.log_n,
+                    "width": sd.ir.num_witness, "vk_equal": sorted(vks),
+                    "items": int(getattr(inst, "num_items", 0)),
+                    "artifacts_s": round(art_s, 3),
+                    "setup_s": round(setup_s, 3), "proved": False}
+                del sd, geo
+                ly._SETUP_CACHE.clear()
+                continue
             tracing.GLOBAL.spans.clear()
             before_prove = dict(ck.LAUNCHES)
             proof, prove_s = timed(lambda: prove_one(inst, chals))
@@ -2126,7 +2523,12 @@ def main(argv=None) -> int:
                             f"vk_{ctype}.json")
                 rec["vk_equal"] = True
             proves, verifies, fills = [], [], []
-            for k, inst in enumerate(insts):
+            # the first of the four code-decommitter instances only (the
+            # same circuit, 12 s of the script): all four are decomposed
+            # and counted above
+            proved = insts[:1] if name == "decommitter" else insts
+            rec["instances_proved"] = len(proved)
+            for k, inst in enumerate(proved):
                 tracing.GLOBAL.spans.clear()
                 before_prove = dict(ck.LAUNCHES)
                 proof, prove_s = timed(lambda: prove_one(inst, ctx))
@@ -2266,7 +2668,7 @@ def main(argv=None) -> int:
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
     # -- 17-22. the tower and the wrap: golden, full chain, blob, kernels ----
-    launches_tower, launches_blob, timing_tower, timing_wrap = tower_phases(
+    tower_paths, timing_tower, timing_wrap, timing_fw = tower_phases(
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
     # -- optional: device busy share of one more prove -----------------------
@@ -2372,8 +2774,7 @@ def main(argv=None) -> int:
                    "sorters": launches_srt[name],
                    "hashes": launches_hash[name],
                    "block": launches_block[name],
-                   "full_chain": launches_tower[name],
-                   "eip4844": launches_blob[name]}
+                   **{p: tower_paths[p][name] for p in tower_paths}}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -2407,6 +2808,24 @@ def main(argv=None) -> int:
                                 for k in keys}
         return out
 
+    def fw_entry(name, replaces):
+        # K3: no TPU counterpart (`replaces` names the JAX package's host
+        # Python it takes over); ms and the bound at the production
+        # for-wrapper tree's shape, the plain version's time at the check
+        # shape (exact Python ints)
+        t = timing_fw[name]
+        by_path = {p: tower_paths[p][name] for p in tower_paths}
+        return {"name": name, "route": "cuda",
+                "source": "zkevm_harness_tpu_torch/csrc/poseidon2_bn254.cu",
+                "replaces": replaces, "tpu_kernel": None,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": errs[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "shape": t["shape"], "plain_shape": t["plain_shape"],
+                "check_ms": t["check_ms"]}
+
     gsrc = "zkevm_harness_tpu_torch/csrc/goldilocks.cu"
     kernels_line = {
         "kernels": [
@@ -2414,7 +2833,12 @@ def main(argv=None) -> int:
                   "zkevm_harness_tpu/ops/pallas_kernels.py:386"),
             entry("poseidon2_permute",
                   "zkevm_harness_tpu_torch/csrc/poseidon2.cu",
-                  "zkevm_harness_tpu/ops/pallas_kernels.py:255")],
+                  "zkevm_harness_tpu/ops/pallas_kernels.py:255"),
+            # the port's kernel with no TPU counterpart
+            fw_entry("bn254_hash_rows",
+                     "zkevm_harness_tpu/prover/hash_backend.py:113"),
+            fw_entry("bn254_hash_pairs",
+                     "zkevm_harness_tpu/prover/hash_backend.py:117")],
         # elementwise helpers on the same device routines; they port no TPU
         # kernel
         "helpers": [entry(n, gsrc, None)

@@ -84,7 +84,9 @@ def test_every_module_imports_without_jax():
                      "utils.bls12_381", "utils.kzg", "utils.plonk",
                      "utils.snark_wrapper", "prover.compression",
                      "witness.eip4844", "circuits.eip4844_circuit",
-                     "full_chain"):
+                     "full_chain", "utils.poseidon2_bn254",
+                     "prover.hash_backend", "utils.plonk_builder",
+                     "utils.snark_fri_verifier"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 
@@ -397,15 +399,16 @@ def test_recursion_entry_points_raise_without_cuda():
 
 
 def test_wrap_entry_points_raise_without_cuda():
-    """The blob branch, the compression layers and the full chain raise on
-    a machine without a CUDA card; the BN254-hashed parts not ported yet
-    raise NotImplementedError whatever the device."""
+    """The blob branch, the compression layers (the for-wrapper mode and
+    its hash backend too) and the full chain raise on a machine without a
+    CUDA card; an unknown SNARK tier raises whatever the device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from zkevm_harness_tpu_torch import full_chain as fc
     from zkevm_harness_tpu_torch import golden
     from zkevm_harness_tpu_torch.circuits import eip4844_circuit as e4
     from zkevm_harness_tpu_torch.circuits import queue_circuit as qc
+    from zkevm_harness_tpu_torch.prover import hash_backend as hb
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
     from zkevm_harness_tpu_torch.vm import isa
@@ -419,17 +422,82 @@ def test_wrap_entry_points_raise_without_cuda():
                  lambda: e4.instance_inputs([1, 2], 3),
                  lambda: ly.create_compression_layer_setup_data(1, ir, cfg),
                  lambda: ly.CompressionChain(ir, cfg, [0] * 4),
+                 lambda: ly.CompressionChain(ir, cfg, [0] * 4,
+                                             wrapper_mode=1),
+                 lambda: ly.create_compression_for_wrapper_setup_data(
+                     1, ir, cfg),
+                 lambda: ly.verify_compression_for_wrapper_proof(
+                     1, ir, cfg, None),
+                 lambda: hb.Bn254Backend(),
+                 lambda: hb.Bn254Transcript(),
                  lambda: fc.prove_block_full_chain(golden.tower_block(isa),
-                                                   chain_types=(8,))):
+                                                   chain_types=(8,)),
+                 lambda: fc.prove_block_full_chain(
+                     golden.tower_block(isa), chain_types=(8,),
+                     for_wrapper=True, snark_mode="binding")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    for call in (lambda: ly.CompressionChain(ir, cfg, [0] * 4,
-                                             wrapper_mode=1, device="cpu"),
-                 lambda: fc.prove_block_full_chain(
-                     golden.tower_block(isa), chain_types=(8,),
-                     for_wrapper=True, device="cpu"),
-                 lambda: fc.prove_block_full_chain(
-                     golden.tower_block(isa), chain_types=(8,),
-                     snark_mode="binding", device="cpu")):
-        with pytest.raises(NotImplementedError, match="A7"):
-            call()
+    chain = ly.CompressionChain(ir, cfg, [0] * 4, wrapper_mode=1,
+                                device="cpu")
+    assert chain.device.type == "cpu"
+    with pytest.raises(ValueError, match="SNARK mode"):
+        fc.prove_block_full_chain(golden.tower_block(isa), chain_types=(8,),
+                                  snark_mode="plonk", device="cpu")
+
+
+def _package_digest(root):
+    """SHA-256 over the paths and bytes of a package's source and data
+    files (caches aside)."""
+    import hashlib
+    h = hashlib.sha256()
+    for dirpath, dirs, files in sorted(os.walk(root)):
+        dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+        for name in sorted(files):
+            if name.endswith((".py", ".json")):
+                path = os.path.join(dirpath, name)
+                h.update(os.path.relpath(path, root).encode() + b"\0")
+                with open(path, "rb") as f:
+                    h.update(f.read())
+    return h.hexdigest()
+
+
+# the JAX package as the port found it: its source and data files, which
+# the port reads as a reference and never edits
+JAX_PACKAGE_SHA256 = (
+    "78e29ce68f0b5cab34fcf395cb61398297a41b89d229e0b618dba05e69d86c6c")
+
+
+def test_jax_package_is_unchanged():
+    assert _package_digest(os.path.join(REPO, "zkevm_harness_tpu")) == \
+        JAX_PACKAGE_SHA256
+
+
+def test_bn254_params_are_read_never_written(tmp_path):
+    """The port reads its own copy of the Poseidon2-BN254 table: with that
+    file gone it raises, and it writes the table neither into its own
+    package nor into the JAX package's."""
+    import shutil
+    jax_json = os.path.join(REPO, "zkevm_harness_tpu", "params",
+                            "poseidon2_bn254.json")
+    with open(jax_json, "rb") as f:
+        jax_bytes = f.read()
+    shutil.copytree(os.path.join(REPO, "zkevm_harness_tpu_torch"),
+                    tmp_path / "zkevm_harness_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    copy_json = tmp_path / "zkevm_harness_tpu_torch" / "params" / \
+        "poseidon2_bn254.json"
+    os.remove(copy_json)
+    probe = textwrap.dedent("""
+        from zkevm_harness_tpu_torch.utils import poseidon2_bn254 as p2b
+        try:
+            p2b.permute([1, 2, 3])
+        except FileNotFoundError:
+            print("RAISED")
+    """)
+    res = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                         capture_output=True, text=True, timeout=120)
+    assert "RAISED" in res.stdout, res.stderr[-2000:]
+    assert not copy_json.exists()
+    with open(jax_json, "rb") as f:
+        assert f.read() == jax_bytes

@@ -500,3 +500,25 @@ def json_roundtrip(obj):
     """`obj` through a JSON text and back (what a file store keeps)."""
     import json
     return json.loads(json.dumps(obj))
+
+
+def plonk_statement_digests(builder, wires, public_inputs) -> Dict:
+    """SHA-256 digests of a PLONK statement built by either package's
+    `PlonkBuilder` and filled: its selectors, its wiring, its public gates
+    and its assignment (the three wire columns and the public inputs). Two
+    statements with equal digests are the same circuit over the same
+    values."""
+    def digest(*cols) -> str:
+        h = hashlib.sha256()
+        for col in cols:
+            h.update(",".join(str(int(v)) for v in col).encode())
+            h.update(b"\n")
+        return h.hexdigest()
+
+    return dict(
+        n_gates=len(builder.qL),
+        selectors=digest(builder.qL, builder.qR, builder.qO, builder.qM,
+                         builder.qC),
+        wiring=digest(builder.wa, builder.wb, builder.wc),
+        public_gates=digest(builder.public_gates),
+        assignment=digest(*wires, public_inputs))

@@ -36,10 +36,10 @@ Cross-bindings asserted along the way:
     (tests/test_full_chain.py).
 
 Counterpart of the JAX package's `full_chain.py` over the port's
-`harness.run_block`, with its default wrap: Goldilocks-hashed compression
-modes and the "pi" SNARK tier. The BN254-hashed final mode
-(`for_wrapper=True`) and the "binding" and "full" SNARK tiers raise
-`NotImplementedError` (ROADMAP A7). Every proof runs on `device` (`None`:
+`harness.run_block`: Goldilocks-hashed compression modes, the BN254-hashed
+final mode (`for_wrapper=True`, its trees on the device's Poseidon2-BN254
+kernel) and the three SNARK tiers ("pi"; "binding" and "full" over the
+for-wrapper proof). Every proof runs on `device` (`None`:
 the CUDA card, raising where there is none); `FullChainResult.stats` holds,
 per proof of the blob branch, the compression chain and the wrapper, its
 shape and the seconds of each step (with its peak device memory and kernel
@@ -119,10 +119,8 @@ def prove_block_full_chain(code, chain_types: Sequence[int],
     blob record. `compression_cfg`, `wrap` and `progress` are the knobs of
     the JAX package's CLI; `leaf_arity` splits a type's base proofs into
     leaf chunks as `harness.run_block` does."""
-    if for_wrapper or snark_mode != "pi":
-        raise NotImplementedError(
-            "the for-wrapper compression mode and the 'binding' and 'full' "
-            "SNARK tiers wait for the BN254-hashed half of ROADMAP A7")
+    if snark_mode not in ("pi", "binding", "full"):
+        raise ValueError(f"unknown SNARK mode {snark_mode!r}")
     device = gl.resolve_device(device)
     stats: Dict[str, Dict] = {}
     geometry = geometry or testing_geometry()
@@ -270,32 +268,85 @@ def prove_block_full_chain(code, chain_types: Sequence[int],
         outer_cfgs = ({m: compression_cfg
                        for m in range(1, compression_layers + 1)}
                       if compression_cfg is not None else None)
-        chain = ly.CompressionChain(scheduler.ir, scheduler.cfg,
-                                    scheduler.vk, outer_cfgs=outer_cfgs,
-                                    device=device)
+        # `for_wrapper` hashes the FINAL mode's trees/transcript with the
+        # Bn256 Poseidon2 sponge (the reference always does)
+        chain = ly.CompressionChain(
+            scheduler.ir, scheduler.cfg, scheduler.vk,
+            outer_cfgs=outer_cfgs,
+            wrapper_mode=compression_layers if for_wrapper else None,
+            device=device)
         cfg = cmp.WrapperConfig(compression_layers=compression_layers)
         final = cmp.wrap_proof(sched_proof, sched_pi, cfg,
                                chain.prove_fn, chain.verify_fn,
                                source=blk.source)
         for mode, st in chain.stats.items():
             stats[f"compression_{mode}"] = st
+        if for_wrapper:
+            # the for-wrapper inner shape, so callers (and the full
+            # in-SNARK tier below) can synthesize/check the WrapperCircuit
+            # statement over the chain's proof (None on a chain resumed in
+            # full, whose prove_fn never ran)
+            try:
+                final["fw_shape"] = chain.final_shape(compression_layers)
+            except KeyError:
+                final["fw_shape"] = None
         say("compression chain proven")
-        # the "pi" SNARK tier: packs the scheduler commitment into the L1 input
-        # (a real BN254 PLONK proof)
+        # SNARK statement tiers (all real BN254 PLONK proofs, host ints):
+        #   "pi"      — packs the scheduler commitment into the L1 input;
+        #   "binding" — + an in-SNARK Poseidon2-BN254 digest binding the
+        #               for-wrapper VK to the chunks (needs for_wrapper);
+        #   "full"    — verifies the whole for-wrapper FRI proof in-SNARK
+        #               (utils/snark_fri_verifier — the reference
+        #               WrapperCircuit statement, wrapper.rs:108-275;
+        #               minutes of host PLONK proving, so opt-in).
         watch = tracing.Stopwatch(device)
-        wsetup = sw.wrapper_setup()
-        watch.lap("setup")
-        snark_proof = sw.wrap_scheduler_pi(wsetup, sched_pi)
-        watch.lap("prove")
-        assert sw.verify_wrapped_proof(wsetup.vk, snark_proof,
-                                       expected_scheduler_pi=sched_pi), \
-            "SNARK wrapper proof failed verification"
-        watch.lap("verify")
-        assert int(snark_proof.public_inputs[-1]) == \
-            int(final["snark_public_input"])
-        stats["snark"] = watch.done(gates=wsetup.circuit.num_gates,
-                                    n=wsetup.vk.n)
-        snark = {"proof": snark_proof, "vk": wsetup.vk, "mode": "pi"}
+        if for_wrapper and snark_mode == "full":
+            from .utils import snark_fri_verifier as sfv
+            fw_ir, fw_cfg, fw_vk = chain.final_shape(compression_layers)
+            psetup, snark_proof, _lay = sfv.wrap_fw_proof(
+                fw_ir, fw_cfg, fw_vk, final["final_proof"])
+            watch.lap("prove")
+            assert sfv.verify_fw_wrapped(
+                psetup.vk, snark_proof, expected_fw_vk=fw_vk,
+                expected_inner_pis=final["final_proof"].public_inputs), \
+                "full in-SNARK FRI verification failed"
+            watch.lap("verify")
+            assert int(snark_proof.public_inputs[-1]) == \
+                int(final["snark_public_input"])
+            snark = {"proof": snark_proof, "vk": psetup.vk, "mode": "full"}
+            stats["snark"] = watch.done(gates=psetup.circuit.num_gates,
+                                        n=psetup.vk.n, mode="full")
+        elif for_wrapper and snark_mode == "binding":
+            fw_vk = [int(v) for v in final["final_vk"]]
+            bsetup, snark_proof = sw.wrap_with_binding(fw_vk, sched_pi)
+            watch.lap("prove")
+            assert sw.verify_binding_proof(
+                bsetup.vk, snark_proof, expected_fw_vk=fw_vk,
+                expected_scheduler_pi=sched_pi), \
+                "binding SNARK wrapper failed verification"
+            watch.lap("verify")
+            assert int(snark_proof.public_inputs[len(fw_vk) + 4]) == \
+                int(final["snark_public_input"])
+            snark = {"proof": snark_proof, "vk": bsetup.vk,
+                     "mode": "binding"}
+            stats["snark"] = watch.done(gates=bsetup.circuit.num_gates,
+                                        n=bsetup.vk.n, mode="binding")
+        else:
+            # the "pi" tier: packs the scheduler commitment into the L1
+            # input
+            wsetup = sw.wrapper_setup()
+            watch.lap("setup")
+            snark_proof = sw.wrap_scheduler_pi(wsetup, sched_pi)
+            watch.lap("prove")
+            assert sw.verify_wrapped_proof(wsetup.vk, snark_proof,
+                                           expected_scheduler_pi=sched_pi), \
+                "SNARK wrapper proof failed verification"
+            watch.lap("verify")
+            assert int(snark_proof.public_inputs[-1]) == \
+                int(final["snark_public_input"])
+            stats["snark"] = watch.done(gates=wsetup.circuit.num_gates,
+                                        n=wsetup.vk.n, mode="pi")
+            snark = {"proof": snark_proof, "vk": wsetup.vk, "mode": "pi"}
         say(f"SNARK wrapper proven (mode={snark.get('mode')})")
 
     return FullChainResult(

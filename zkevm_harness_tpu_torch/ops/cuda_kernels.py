@@ -7,7 +7,10 @@ kernels become CUDA C++ kernels for `sm_90a` (sources under `csrc/`):
   `pallas_poseidon2_permute`  -> `poseidon2_permute`  (csrc/poseidon2.cu)
 
 plus three small elementwise helpers on the same device routines (`gl_add`,
-`gl_sub`, `gl_pow7`), which port no TPU kernel and are listed apart.
+`gl_sub`, `gl_pow7`), which port no TPU kernel and are listed apart, and one
+kernel of the port with no TPU counterpart: Poseidon2 over BN254 Fr
+(`bn254_hash_rows`, `bn254_hash_pairs`, csrc/poseidon2_bn254.cu), which the
+JAX package runs in host Python for the for-wrapper compression's trees.
 
 Beside each kernel stand its plain PyTorch version (`*_plain`, int64 tensor
 arithmetic on 32-bit halves, any device), a launch counter in `LAUNCHES`,
@@ -20,7 +23,8 @@ started together) compiles `csrc/*.cu` into shared libraries under `build/`
 in the package, which are loaded with `ctypes`. A library is rebuilt when a
 source is newer than it. The module itself imports without `nvcc`.
 
-A field element is one int64 holding the canonical u64 bit pattern (< p).
+A field element is one int64 holding the canonical u64 bit pattern (< p); a
+BN254 Fr digest is four int64 limbs, little-endian 64-bit words.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import poseidon2_bn254 as p2b
 from .poseidon2_params import R_F, R_P, T, const_tables_u64
 
 P = 0xFFFFFFFF_00000001
@@ -46,14 +51,15 @@ _M32 = 0xFFFFFFFF  # also EPSILON = 2^64 mod p
 _PKG_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("goldilocks", "poseidon2")
+SOURCES = ("goldilocks", "poseidon2", "poseidon2_bn254")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last reset (plain integers; a wrapper
 # adds one exactly where it launches its kernel)
 LAUNCHES: Dict[str, int] = {"gl_mul": 0, "poseidon2_permute": 0,
-                            "gl_add": 0, "gl_sub": 0, "gl_pow7": 0}
+                            "gl_add": 0, "gl_sub": 0, "gl_pow7": 0,
+                            "bn254_hash_rows": 0, "bn254_hash_pairs": 0}
 
 
 def reset_launches() -> None:
@@ -148,6 +154,13 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.p2_set_constants.restype = ctypes.c_int
         lib.p2_permute_launch.argtypes = [_PTR, _PTR, _LONG, _PTR]
         lib.p2_permute_launch.restype = ctypes.c_int
+    elif name == "poseidon2_bn254":
+        lib.bn254_set_constants.argtypes = [_PTR, _PTR, _PTR, _PTR]
+        lib.bn254_set_constants.restype = ctypes.c_int
+        lib.bn254_hash_rows_launch.argtypes = [_PTR, _LONG, _LONG, _PTR, _PTR]
+        lib.bn254_hash_rows_launch.restype = ctypes.c_int
+        lib.bn254_hash_pairs_launch.argtypes = [_PTR, _LONG, _PTR, _PTR]
+        lib.bn254_hash_pairs_launch.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
 
@@ -491,4 +504,113 @@ def poseidon2_permute(state: torch.Tensor) -> torch.Tensor:
                                    _stream(state.device))
     _check(rc, "poseidon2_permute")
     LAUNCHES["poseidon2_permute"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Poseidon2 over BN254 Fr (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+def bn254_hash_rows_plain(cols: torch.Tensor) -> torch.Tensor:
+    """(w, k) canonical Goldilocks values on the CPU -> (k, 4) Fr digests:
+    each row packed 3 values per Fr and sponge-hashed, in exact Python ints
+    (the JAX package's algorithm, `utils/poseidon2_bn254.py`)."""
+    rows = cols.numpy().view(np.uint64).T.tolist()
+    digests = [p2b.hash_elements(p2b.pack_goldilocks(r)) for r in rows]
+    return torch.from_numpy(p2b.to_limbs(digests))
+
+
+def bn254_hash_pairs_plain(nodes: torch.Tensor) -> torch.Tensor:
+    """(2m, 4) Fr limbs on the CPU -> (m, 4): node i = hash(in[2i],
+    in[2i + 1]), one permutation of [l, r, 0] each, in exact Python ints."""
+    vals = p2b.from_limbs(nodes.numpy())
+    assert all(v < p2b.FR for v in vals), "Fr limbs must be canonical"
+    return torch.from_numpy(p2b.to_limbs(
+        [p2b.hash_elements(vals[i:i + 2]) for i in range(0, len(vals), 2)]))
+
+
+_BN254_CONSTANTS_SET = set()  # CUDA device indices whose constant memory is set
+
+
+def _mont_limbs(values) -> np.ndarray:
+    """Fr ints -> Montgomery form (times 2^256 mod p), (k, 4) uint64."""
+    return np.ascontiguousarray(p2b.to_limbs(
+        [(int(v) << 256) % p2b.FR for v in values]).view(np.uint64))
+
+
+def _bn254_lib(device: torch.device) -> ctypes.CDLL:
+    lib = _lib("poseidon2_bn254")
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _BN254_CONSTANTS_SET:
+        ext0, internal, ext1, diag = p2b.round_constants()
+        r2 = np.ascontiguousarray(
+            p2b.to_limbs([(1 << 512) % p2b.FR]).view(np.uint64))
+        ext = _mont_limbs([c for rc in ext0 + ext1 for c in rc])
+        ints = _mont_limbs(internal)
+        dg = _mont_limbs(diag)
+        with torch.cuda.device(device):
+            rc = lib.bn254_set_constants(r2.ctypes.data, ext.ctypes.data,
+                                         ints.ctypes.data, dg.ctypes.data)
+        _check(rc, "bn254_set_constants")
+        _BN254_CONSTANTS_SET.add(idx)
+    return lib
+
+
+def bn254_hash_rows(cols: torch.Tensor) -> torch.Tensor:
+    """(w, k) canonical Goldilocks values, column-major as the prover's LDE
+    lies -> (k, 4) int64 limbs of each row's Poseidon2-BN254 sponge digest
+    (3 values packed per Fr, zero-padded to the rate, digest lane 0).
+
+    Replaces no TPU kernel: the JAX package hashes the for-wrapper trees in
+    host Python (prover/hash_backend.py `hash_rows`). One thread per row,
+    the Fr state in registers in Montgomery form; integer arithmetic bounds
+    it on an H100. The values must be canonical (< p): the kernel packs the
+    bits as they are, and the plain version refuses other values."""
+    _require_field(cols, "bn254_hash_rows")
+    if cols.dim() != 2:
+        raise ValueError(f"bn254_hash_rows: want (w, k), got "
+                         f"{tuple(cols.shape)}")
+    if cols.device.type == "cpu":
+        return bn254_hash_rows_plain(cols)
+    if cols.device.type != "cuda":
+        raise ValueError(f"bn254_hash_rows: unsupported device {cols.device}")
+    src = cols.contiguous()
+    w, k = src.shape
+    out = torch.empty((k, 4), dtype=torch.int64, device=cols.device)
+    if k == 0:
+        return out
+    lib = _bn254_lib(cols.device)
+    with torch.cuda.device(cols.device):
+        rc = lib.bn254_hash_rows_launch(src.data_ptr(), w, k, out.data_ptr(),
+                                        _stream(cols.device))
+    _check(rc, "bn254_hash_rows")
+    LAUNCHES["bn254_hash_rows"] += 1
+    return out
+
+
+def bn254_hash_pairs(nodes: torch.Tensor) -> torch.Tensor:
+    """(2m, 4) int64 limbs of canonical Fr -> (m, 4): one Merkle level,
+    node i = permute([in[2i], in[2i + 1], 0])[0]. Replaces no TPU kernel
+    (see `bn254_hash_rows`); one thread per node."""
+    _require_field(nodes, "bn254_hash_pairs")
+    if nodes.dim() != 2 or nodes.shape[1] != 4 or nodes.shape[0] % 2:
+        raise ValueError(f"bn254_hash_pairs: want (2m, 4), got "
+                         f"{tuple(nodes.shape)}")
+    if nodes.device.type == "cpu":
+        return bn254_hash_pairs_plain(nodes)
+    if nodes.device.type != "cuda":
+        raise ValueError(f"bn254_hash_pairs: unsupported device "
+                         f"{nodes.device}")
+    src = nodes.contiguous()
+    m = src.shape[0] // 2
+    out = torch.empty((m, 4), dtype=torch.int64, device=nodes.device)
+    if m == 0:
+        return out
+    lib = _bn254_lib(nodes.device)
+    with torch.cuda.device(nodes.device):
+        rc = lib.bn254_hash_pairs_launch(src.data_ptr(), m, out.data_ptr(),
+                                         _stream(nodes.device))
+    _check(rc, "bn254_hash_pairs")
+    LAUNCHES["bn254_hash_pairs"] += 1
     return out

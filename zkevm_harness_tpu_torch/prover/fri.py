@@ -1,7 +1,6 @@
 """FRI low-degree test: batched folding on device, Merkle-committed layers.
 
-Counterpart of the JAX package's `prover/fri.py` (Goldilocks-Poseidon2 path
-only). Folding is radix-2 over the extension field: each round is a handful
+Counterpart of the JAX package's `prover/fri.py`. Folding is radix-2 over the extension field: each round is a handful
 of field kernels over the whole codeword; layer commitments use pair-leaves
 so a single opening serves the butterfly.
 
@@ -10,7 +9,9 @@ NOT committed here — its queried values are recomputed by the verifier from
 the trace/quotient openings. Layers 1..R-1 are committed with leaf
 l ∈ [0, N_r/2) = [c0(a), c1(a), c0(b), c1(b)] for a = f(d_l), b = f(-d_l).
 The final layer is sent as coefficients; the verifier checks its degree and
-evaluates it directly.
+evaluates it directly. A hash backend (prover/hash_backend.Bn254Backend, the
+compression-for-wrapper mode) replaces the layer trees' hasher and the cap
+absorption; its trees are built on the codeword's device too.
 """
 
 from __future__ import annotations
@@ -83,7 +84,9 @@ def _pair_leaf_rows(cw: GF2) -> GF:
 
 
 def fri_prove(codeword: GF2, shift: int, tr: Transcript,
-              cfg: FriConfig) -> FriProof:
+              cfg: FriConfig, backend=None) -> FriProof:
+    """`backend` switches the layer-tree hasher and the cap absorption to
+    another hash backend; None keeps Goldilocks Poseidon2."""
     n0 = codeword.shape[0]
     device = codeword.device
     codewords = [codeword]
@@ -101,9 +104,14 @@ def fri_prove(codeword: GF2, shift: int, tr: Transcript,
             if r < cfg.folding_rounds - 1:
                 # commit the folded layer (pair leaves for the NEXT fold)
                 rows = _pair_leaf_rows(cur)
-                tree = mk.commit(rows, min(cfg.cap_size, rows.shape[0]))
+                cap_sz = min(cfg.cap_size, rows.shape[0])
+                if backend is not None:
+                    tree = backend.commit_rows(rows.t(), cap_sz)
+                    tr.absorb_fr(tree.cap)
+                else:
+                    tree = mk.commit(rows, cap_sz)
+                    tr.absorb_gf_device(tree.cap)
                 trees.append(tree)
-                tr.absorb_gf_device(tree.cap)
 
     with tracing.span("fri_final"):
         # final polynomial from the last codeword (coset intt + unscale)
@@ -115,7 +123,10 @@ def fri_prove(codeword: GF2, shift: int, tr: Transcript,
         c1 = gl.to_u64(gl.mul(nt.intt(final_cw.c1), unscale))
         final_coeffs = [(int(a), int(b)) for a, b in zip(c0, c1)]
         tr.absorb_ints([v for pair in final_coeffs for v in pair])
-        caps_np = [gl.to_u64(tree.cap) for tree in trees]
+        if backend is not None:
+            caps_np = [np.asarray(tree.cap, dtype=object) for tree in trees]
+        else:
+            caps_np = [gl.to_u64(tree.cap) for tree in trees]
         positions = tr.query_indices(cfg.num_queries, n0)
 
     with tracing.span("fri_openings"):
@@ -126,16 +137,18 @@ def fri_prove(codeword: GF2, shift: int, tr: Transcript,
             pos_r = positions % np.uint32(n_r)
             leaf_idx = pos_r % np.uint32(n_r // 2)
             leaves = gl.take(_pair_leaf_rows(cw_r), leaf_idx, axis=0)
-            paths = mk.open_indices(trees[r - 1], leaf_idx)
-            openings.append(FriLayerOpening(gl.to_ints(leaves),
-                                            gl.to_u64(paths)))
+            if backend is not None:
+                paths = backend.open(trees[r - 1], leaf_idx)
+            else:
+                paths = gl.to_u64(mk.open_indices(trees[r - 1], leaf_idx))
+            openings.append(FriLayerOpening(gl.to_ints(leaves), paths))
 
     return FriProof(caps=caps_np, final_poly=final_coeffs, openings=openings,
                     query_positions=positions)
 
 
 def fri_verify(proof: FriProof, n0: int, shift: int, tr: Transcript,
-               cfg: FriConfig, codeword0_at) -> bool:
+               cfg: FriConfig, codeword0_at, backend=None) -> bool:
     """Verify a FRI proof.
 
     `codeword0_at(position) -> (c0, c1)` returns the layer-0 (DEEP) value at
@@ -148,8 +161,12 @@ def fri_verify(proof: FriProof, n0: int, shift: int, tr: Transcript,
     for r in range(cfg.folding_rounds):
         alphas.append(tr.challenge_ext_ints())
         if r < cfg.folding_rounds - 1:
-            tr.absorb_ints([int(v) for v in
-                            np.asarray(proof.caps[r], dtype=object).ravel()])
+            flat = [int(v) for v in
+                    np.asarray(proof.caps[r], dtype=object).ravel()]
+            if backend is not None:
+                tr.absorb_fr(flat)
+            else:
+                tr.absorb_ints(flat)
     tr.absorb_ints([v for pair in proof.final_poly for v in pair])
     positions = tr.query_indices(cfg.num_queries, n0)
     if not np.array_equal(positions, proof.query_positions):
@@ -169,6 +186,16 @@ def fri_verify(proof: FriProof, n0: int, shift: int, tr: Transcript,
         pos_r = positions % np.uint32(n_r)
         leaf_idx = pos_r % np.uint32(n_r // 2)
         op = proof.openings[r - 1]
+        if backend is not None:
+            leaves_t = gl.from_int(np.asarray(op.leaves, dtype=object),
+                                   backend.device).t()
+            if not backend.verify_paths(
+                    backend.hash_rows(leaves_t), [int(v) for v in leaf_idx],
+                    np.asarray(op.paths, dtype=object),
+                    [int(v) for v in
+                     np.asarray(proof.caps[r - 1], dtype=object).ravel()]):
+                return False
+            continue
         leaves_gf = gl.from_int(np.asarray(op.leaves, dtype=object), device)
         paths_gf = gl.from_int(np.asarray(op.paths, dtype=object), device)
         cap_gf = gl.from_int(np.asarray(proof.caps[r - 1], dtype=object),

@@ -60,12 +60,15 @@ from ..circuits import storage_application_circuit as sappcirc
 from ..circuits import storage_sorter_circuit as sscirc
 from ..circuits import verifier_circuit as vc
 from ..circuits.types import (BASE_LAYER_PROOF_CONFIG,
+                              COMPRESSION_FOR_WRAPPER_PROOF_CONFIGS,
                               COMPRESSION_PROOF_CONFIGS,
                               RECURSION_LAYER_PROOF_CONFIG,
                               BaseLayerCircuitType, CompressionMode,
                               ProofSystemConfig, base_capacity)
 from ..ops import goldilocks as gl
+from ..ops import ntt as nt
 from ..utils import tracing
+from . import hash_backend as hb
 from . import plonkish as pk
 
 @dataclasses.dataclass(frozen=True)
@@ -1215,16 +1218,15 @@ class CompressionChain:
                  scheduler_cfg: pk.PlonkishConfig, scheduler_vk,
                  outer_cfgs: Optional[Dict[int, pk.PlonkishConfig]] = None,
                  wrapper_mode: Optional[int] = None, device=None):
-        if wrapper_mode is not None:
-            # the BN254-hashed final mode (Bn256 Poseidon2 trees and
-            # transcript) is not ported yet
-            raise NotImplementedError(
-                "compression for the wrapper (wrapper_mode) waits for the "
-                "BN254-hashed half of ROADMAP A7")
+        """`wrapper_mode` routes that mode through the compression-FOR-
+        WRAPPER path (Bn256 Poseidon2 trees/transcript) — the reference's
+        final mode before the SNARK (WrapperConfig.get_final_compression_
+        type, proof_wrapper_utils/mod.rs:88-92)."""
         self.device = gl.resolve_device(device)
         self._inner: Dict[int, Tuple] = {
             1: (scheduler_ir, scheduler_cfg, scheduler_vk)}
         self._outer_cfgs = outer_cfgs or {}
+        self._wrapper_mode = wrapper_mode
         self.stats: Dict[int, Dict] = {}
 
     def _outer(self, mode: int) -> Optional[pk.PlonkishConfig]:
@@ -1233,25 +1235,37 @@ class CompressionChain:
     def prove_fn(self, mode: int, prev_proof):
         ir, cfg, vk = self._inner[mode]
         watch = tracing.Stopwatch(self.device)
-        cs = create_compression_layer_setup_data(
-            mode, ir, cfg, self._outer(mode), self.device, watch)
-        proof = prove_compression_layer_circuit(
-            mode, ir, cfg, vk, prev_proof, self._outer(mode), self.device,
-            watch)
+        if mode == self._wrapper_mode:
+            cs = create_compression_for_wrapper_setup_data(
+                mode, ir, cfg, self._outer(mode), self.device, watch)
+            proof = prove_compression_for_wrapper_circuit(
+                mode, ir, cfg, vk, prev_proof, self._outer(mode),
+                self.device, watch)
+            out_vk = cs.vk_fr
+        else:
+            cs = create_compression_layer_setup_data(
+                mode, ir, cfg, self._outer(mode), self.device, watch)
+            proof = prove_compression_layer_circuit(
+                mode, ir, cfg, vk, prev_proof, self._outer(mode),
+                self.device, watch)
+            out_vk = cs.sd.vk
         self.stats[mode] = watch.done(
             log_n=cs.sd.ir.log_n, width=cs.sd.ir.num_witness,
             public_inputs=len(cs.sd.ir.public_input_cells),
             gates=cs.builder.num_gates,
-            permutations=len(cs.builder.perms))
-        self._inner[mode + 1] = (cs.sd.ir, cs.sd.config, cs.sd.vk)
-        return proof, cs.sd.vk
+            permutations=len(cs.builder.perms),
+            for_wrapper=mode == self._wrapper_mode)
+        self._inner[mode + 1] = (cs.sd.ir, cs.sd.config, out_vk)
+        return proof, out_vk
 
     def verify_fn(self, mode: int, proof, vk) -> bool:
         ir, cfg, inner_vk = self._inner[mode]
         watch = tracing.Stopwatch(self.device)
-        ok = verify_compression_layer_proof(
-            mode, ir, cfg, proof, vk, expected_inner_vk=inner_vk,
-            outer_cfg=self._outer(mode), device=self.device)
+        verify = (verify_compression_for_wrapper_proof
+                  if mode == self._wrapper_mode
+                  else verify_compression_layer_proof)
+        ok = verify(mode, ir, cfg, proof, vk, expected_inner_vk=inner_vk,
+                    outer_cfg=self._outer(mode), device=self.device)
         watch.lap("verify")
         if mode in self.stats:  # the verify after the prove
             self.stats[mode].setdefault("verify_s", watch.out["verify_s"])
@@ -1261,3 +1275,98 @@ class CompressionChain:
         """(ir, cfg, vk) of the final mode's own circuit (populated by
         prove_fn(final_mode, ...))."""
         return self._inner[final_mode + 1]
+
+
+# -- compression FOR WRAPPER: Bn256-Poseidon2-hashed final mode ---------------
+#
+# The reference's last compression step re-proves the same verifier circuit
+# with the FRI trees and transcript hashed by a Bn256 Poseidon2 sponge, so
+# the BN254 PLONK WrapperCircuit can consume the proof with native-field
+# hash gates (create/prove/verify_compression_for_wrapper_*,
+# src/prover_utils.rs:823-967; hasher types proof_wrapper_utils/mod.rs:30-31).
+# The trees are hashed on the device by `ops/cuda_kernels.bn254_hash_rows`
+# and `bn254_hash_pairs`; the transcript is host Python.
+
+@dataclasses.dataclass
+class ForWrapperSetup:
+    sd: SetupData          # ir + polynomial setup (hash-independent)
+    builder: object
+    layout: object
+    backend: object        # hash_backend.Bn254Backend
+    vk_fr: list            # Bn254 cap of the setup tree (THE for-wrapper VK)
+    setup_tree: object     # Bn254Tree over the setup LDE
+
+
+def for_wrapper_engine_config(mode: int) -> pk.PlonkishConfig:
+    return _engine_config(
+        COMPRESSION_FOR_WRAPPER_PROOF_CONFIGS[CompressionMode(mode)])
+
+
+def create_compression_for_wrapper_setup_data(
+        mode: int, inner_ir: pk.PlonkishIR, inner_cfg: pk.PlonkishConfig,
+        outer_cfg: Optional[pk.PlonkishConfig] = None, device=None,
+        watch=None) -> ForWrapperSetup:
+    """`device=None` means the CUDA card."""
+    device = gl.resolve_device(device)
+    outer_cfg = outer_cfg or for_wrapper_engine_config(mode)
+    key = ("compression_fw", mode, inner_ir.log_n, inner_ir.num_witness,
+           inner_cfg.rate, inner_cfg.cap_size, inner_cfg.num_queries,
+           inner_cfg.final_fri_size, outer_cfg.rate, outer_cfg.num_queries,
+           outer_cfg.cap_size, outer_cfg.final_fri_size, str(device))
+    if key not in _SETUP_CACHE:
+        b, lay = vc.synthesize_verifier(inner_ir, inner_cfg, slots=8)
+        _lap(watch, "synthesis")
+        built = b.finalize()
+        _lap(watch, "finalize")
+        setup = built.setup(outer_cfg, device=device)
+        backend = hb.Bn254Backend(device)
+        setup_cols = gl.concatenate(
+            [setup.const_cols, setup.sigma_cols, setup.table_cols], axis=0)
+        tree = backend.commit_rows(nt.coset_lde(setup_cols, outer_cfg.rate),
+                                   outer_cfg.cap_size)
+        _lap(watch, "setup")
+        sd = SetupData(ir=built.ir, setup=setup, vk=tree.cap,
+                       config=outer_cfg)
+        _SETUP_CACHE[key] = ForWrapperSetup(
+            sd=sd, builder=b, layout=lay, backend=backend, vk_fr=tree.cap,
+            setup_tree=tree)
+    return _SETUP_CACHE[key]
+
+
+def prove_compression_for_wrapper_circuit(
+        mode: int, inner_ir: pk.PlonkishIR, inner_cfg: pk.PlonkishConfig,
+        inner_vk, inner_proof,
+        outer_cfg: Optional[pk.PlonkishConfig] = None, device=None,
+        watch=None):
+    device = gl.resolve_device(device)
+    fw = create_compression_for_wrapper_setup_data(
+        mode, inner_ir, inner_cfg, outer_cfg, device, watch)
+    asg = vc.verifier_assignments(fw.layout, inner_vk, inner_proof)
+    witness = fw.builder.fill_witness(asg, device=device)
+    _lap(watch, "fill")
+    proof = pk.prove(fw.sd.ir, fw.sd.setup, witness, fw.sd.config,
+                     backend=fw.backend,
+                     backend_setup=(fw.vk_fr, fw.setup_tree), device=device)
+    del witness
+    _lap(watch, "prove")
+    expected = vc.verifier_public_inputs(inner_vk, inner_proof)
+    assert [int(v) for v in proof.public_inputs] == expected, \
+        "for-wrapper PI mismatch (inner vk + inner public inputs)"
+    return proof
+
+
+def verify_compression_for_wrapper_proof(
+        mode: int, inner_ir: pk.PlonkishIR, inner_cfg: pk.PlonkishConfig,
+        proof, vk=None, expected_inner_vk=None,
+        outer_cfg: Optional[pk.PlonkishConfig] = None,
+        device=None) -> bool:
+    device = gl.resolve_device(device)
+    fw = create_compression_for_wrapper_setup_data(
+        mode, inner_ir, inner_cfg, outer_cfg, device)
+    if expected_inner_vk is not None:
+        k = len(expected_inner_vk)
+        if [int(v) for v in proof.public_inputs[:k]] != \
+                [int(v) % gl.P for v in expected_inner_vk]:
+            return False
+    return pk.verify(fw.sd.ir, vk if vk is not None else fw.vk_fr, proof,
+                     fw.sd.config, device=device, backend=fw.backend)

@@ -973,10 +973,15 @@ def _ext_interleave(v: GF2) -> GF:
 # ---------------------------------------------------------------------------
 
 def prove(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
-          cfg: PlonkishConfig = PlonkishConfig(),
-          device=None) -> PlonkishProof:
+          cfg: PlonkishConfig = PlonkishConfig(), backend=None,
+          backend_setup=None, device=None) -> PlonkishProof:
     """Prove `witness` (num_witness, n) against `setup`. `device=None` means
-    the CUDA card; the witness and the setup must already live there."""
+    the CUDA card; the witness and the setup must already live there.
+
+    `backend`/`backend_setup` switch the Merkle hasher and the transcript to
+    another hash backend (prover/hash_backend.Bn254Backend with its
+    (vk_fr, setup_tree) pair): the compression-for-wrapper mode
+    (prover_utils.rs:900-967). None keeps the Goldilocks Poseidon2 path."""
     device = gl.resolve_device(device)
     for name, t in (("witness", witness), ("setup", setup.sigma_cols)):
         if t.device != device:
@@ -985,11 +990,13 @@ def prove(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     with tracing.span("plonkish.prove", log_n=ir.log_n,
                       num_witness=ir.num_witness):
         tracing.count("proofs")
-        return _prove_impl(ir, setup, witness, cfg, device)
+        return _prove_impl(ir, setup, witness, cfg, device, backend,
+                           backend_setup)
 
 
 def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
-                cfg: PlonkishConfig, device: torch.device) -> PlonkishProof:
+                cfg: PlonkishConfig, device: torch.device, backend=None,
+                backend_setup=None) -> PlonkishProof:
     n = 1 << ir.log_n
     rate = cfg.rate
     n_comm = n * rate
@@ -1019,8 +1026,32 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
             keep(name, lde_b)
         return lde_b
 
-    tr = Transcript(device=device)
-    tr.absorb_ints(setup.vk())
+    def commit(cols: GF = None, coeffs: GF = None):
+        """(coefficients, LDE, tree) of a bundle given by its columns or its
+        coefficients, hashed by the backend where there is one."""
+        if coeffs is None:
+            coeffs = nt.intt(cols)
+        if backend is None:
+            lde_b, tree_b = _commit_cols_from_coeffs(coeffs, n_comm,
+                                                     cfg.cap_size)
+        else:
+            lde_b = nt.lde_from_coeffs(coeffs, n_comm)
+            tree_b = backend.commit_rows(lde_b, cfg.cap_size)
+        return coeffs, lde_b, tree_b
+
+    def absorb_cap(tree_b):
+        if backend is None:
+            tr.absorb_gf_device(tree_b.cap)
+        else:
+            tr.absorb_fr(tree_b.cap)
+
+    if backend is not None:
+        assert backend_setup is not None, "for-wrapper mode needs its setup"
+        tr = backend.transcript()
+        tr.absorb_fr(backend_setup[0])
+    else:
+        tr = Transcript(device=device)
+        tr.absorb_ints(setup.vk())
 
     # public inputs: bound via transcript + composition terms; fetch ONLY
     # the PI cells
@@ -1041,11 +1072,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
 
     # -- stage 1: witness commitment --------------------------------------
     with tracing.span("stage1_commit"):
-        wit_coeffs, wit_lde, wit_tree = _commit_cols_with_coeffs(
-            witness, rate, cfg.cap_size)
+        wit_coeffs, wit_lde, wit_tree = commit(cols=witness)
         keep("witness", wit_lde)
         del wit_lde
-        tr.absorb_gf_device(wit_tree.cap)
+        absorb_cap(wit_tree)
         _beta, beta_gf = _draw_ext()
 
     # -- stage 2: copy-permutation columns --------------------------------
@@ -1069,11 +1099,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
                 m_cols_np = _multiplicities(ir, setup, wit_cols_np, n)
             m_cols = gl.from_int(np.stack(m_cols_np), device)
             stage2 = gl.concatenate([stage2, m_cols], axis=0)
-        s2_coeffs, s2_lde, s2_tree = _commit_cols_with_coeffs(
-            stage2, rate, cfg.cap_size)
+        s2_coeffs, s2_lde, s2_tree = commit(cols=stage2)
         keep("stage2", s2_lde)
         del s2_lde
-        tr.absorb_gf_device(s2_tree.cap)
+        absorb_cap(s2_tree)
         del stage2  # evals recomputed from coeffs per coset
 
     # -- stage 2b: lookup helper columns (logup with inverses) ------------
@@ -1083,11 +1112,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
             _beta_lk, beta_lk_gf = _draw_ext()
             stage3 = _stage3(ir, witness, setup.table_cols, m_cols,
                              theta_gf, beta_lk_gf)
-            s3_coeffs, s3_lde, s3_tree = _commit_cols_with_coeffs(
-                stage3, rate, cfg.cap_size)
+            s3_coeffs, s3_lde, s3_tree = commit(cols=stage3)
             keep("stage3", s3_lde)
             del s3_lde
-            tr.absorb_gf_device(s3_tree.cap)
+            absorb_cap(s3_tree)
             del stage3
         else:
             theta_gf = beta_lk_gf = gl.ext_zeros((), device)
@@ -1142,11 +1170,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         q_coeffs = _quotient_coeffs_strat(
             class_Ds, num_q_chunks, n, [acc[D] for D in class_Ds], unscales)
         del acc
-        q_lde, q_tree = _commit_cols_from_coeffs(q_coeffs, n_comm,
-                                                 cfg.cap_size)
+        _q, q_lde, q_tree = commit(coeffs=q_coeffs)
         keep("quotient", q_lde)
         del q_lde
-        tr.absorb_gf_device(q_tree.cap)
+        absorb_cap(q_tree)
 
     # -- stage 4: OOD evaluations -----------------------------------------
     with tracing.span("ood"):
@@ -1228,7 +1255,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
 
     fri_cfg = cfg.fri_config(n_comm)
     with tracing.span("fri"):
-        fri_proof = fri_prove(deep, shift, tr, fri_cfg)
+        fri_proof = fri_prove(deep, shift, tr, fri_cfg, backend=backend)
     del deep
 
     def _pairs(name):
@@ -1251,29 +1278,39 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         all_trees = [("witness", wit_coeffs, wit_tree),
                      ("stage2", s2_coeffs, s2_tree),
                      ("quotient", q_coeffs, q_tree),
-                     ("setup", setup_coeffs_all, setup.tree)]
+                     ("setup", setup_coeffs_all,
+                      setup.tree if backend is None else backend_setup[1])]
         if has_lk:
             all_trees.insert(2, ("stage3", s3_coeffs, s3_tree))
         for name, coeffs_b, tree in all_trees:
             lde_cols = bundle_lde(name, coeffs_b)
             vals = gl.to_u64(gl.take(lde_cols, idx_arr, axis=1).t())
             del lde_cols
-            pth = gl.to_u64(mk.open_indices(tree, idx_arr))
+            if backend is None:
+                pth = gl.to_u64(mk.open_indices(tree, idx_arr))
+            else:
+                pth = backend.open(tree, idx_set)
             openings[name] = {int(i): [int(v) for v in vals[k]]
                               for k, i in enumerate(idx_set)}
             paths[name] = {int(i): pth[k] for k, i in enumerate(idx_set)}
 
-    s3_cap = (gl.to_u64(s3_tree.cap) if has_lk
-              else np.zeros((0, 4), dtype=object))
+    if backend is None:
+        cap_of = gl.to_u64
+        no_cap = np.zeros((0, 4), dtype=object)
+    else:
+        def cap_of(c):
+            return np.asarray(c, dtype=object)
+        no_cap = np.zeros((0,), dtype=object)
     return PlonkishProof(
         public_inputs=public_inputs,
-        witness_cap=gl.to_u64(wit_tree.cap),
-        stage2_cap=gl.to_u64(s2_tree.cap),
-        quotient_cap=gl.to_u64(q_tree.cap),
+        witness_cap=cap_of(wit_tree.cap),
+        stage2_cap=cap_of(s2_tree.cap),
+        quotient_cap=cap_of(q_tree.cap),
         ood_witness=_pairs("witness"),
         ood_witness_next=_pairs("witness_next"),
         ood_stage2=_pairs("stage2"), ood_stage2_next=_pairs("stage2_next"),
-        stage3_cap=s3_cap, ood_stage3=_pairs("stage3"),
+        stage3_cap=cap_of(s3_tree.cap) if has_lk else no_cap,
+        ood_stage3=_pairs("stage3"),
         ood_stage3_next=_pairs("stage3_next"), ood_table=_pairs("table"),
         ood_const=_pairs("const"), ood_sigma=_pairs("sigma"),
         ood_quotient=_pairs("quotient"),
@@ -1286,7 +1323,9 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
 
 def _verify_inner(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
                   cfg: PlonkishConfig = PlonkishConfig(),
-                  device=None) -> bool:
+                  device=None, backend=None) -> bool:
+    """With `backend` set, `vk` is the backend-hashed setup cap (Fr list for
+    Bn254Backend) and all caps/paths are backend digests."""
     device = gl.resolve_device(device)
     n = 1 << ir.log_n
     rate = cfg.rate
@@ -1297,8 +1336,12 @@ def _verify_inner(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
     num_q_chunks = max(1, max_deg - 1)
     w_gen = gl.primitive_root_of_unity(ir.log_n)
 
-    tr = Transcript(device=device)
-    tr.absorb_ints(vk)
+    if backend is not None:
+        tr = backend.transcript()
+        tr.absorb_fr(vk)
+    else:
+        tr = Transcript(device=device)
+        tr.absorb_ints(vk)
     if len(proof.public_inputs) != len(ir.public_input_cells):
         return False
     # Geometry binding: every absorbed OOD list and every opened row must
@@ -1341,8 +1384,11 @@ def _verify_inner(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
                 return False
 
     def _absorb_cap(cap):
-        tr.absorb_ints([int(v) for v in
-                        np.asarray(cap, dtype=object).ravel()])
+        flat = [int(v) for v in np.asarray(cap, dtype=object).ravel()]
+        if backend is not None:
+            tr.absorb_fr(flat)
+        else:
+            tr.absorb_ints(flat)
 
     tr.absorb_ints([int(v) for v in proof.public_inputs])
     _absorb_cap(proof.witness_cap)
@@ -1484,7 +1530,8 @@ def _verify_inner(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
     # -- Merkle openings ---------------------------------------------------
     caps = {"witness": proof.witness_cap, "stage2": proof.stage2_cap,
             "quotient": proof.quotient_cap,
-            "setup": np.array(vk, dtype=object).reshape(-1, 4)}
+            "setup": (np.array(vk, dtype=object) if backend is not None
+                      else np.array(vk, dtype=object).reshape(-1, 4))}
     tree_names = ["witness", "stage2", "quotient", "setup"]
     if has_lk:
         caps["stage3"] = proof.stage3_cap
@@ -1492,6 +1539,18 @@ def _verify_inner(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
     idx_list = sorted(proof.openings["witness"].keys())
     idx_arr = np.array(idx_list, dtype=np.uint32)
     for name in tree_names:
+        if backend is not None:
+            rows_t = gl.from_int(np.array(
+                [proof.openings[name][i] for i in idx_list], dtype=object),
+                device).t()
+            pth_np = np.stack([np.asarray(proof.paths[name][i], dtype=object)
+                               for i in idx_list])
+            if not backend.verify_paths(
+                    backend.hash_rows(rows_t), idx_list, pth_np,
+                    [int(v) for v in
+                     np.asarray(caps[name], dtype=object).ravel()]):
+                return False
+            continue
         rows = gl.from_int(np.array(
             [proof.openings[name][i] for i in idx_list], dtype=object),
             device)
@@ -1538,12 +1597,13 @@ def _verify_inner(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
         return acc
 
     fri_cfg = cfg.fri_config(n_comm)
-    return fri_verify(proof.fri, n_comm, shift, tr, fri_cfg, deep_at)
+    return fri_verify(proof.fri, n_comm, shift, tr, fri_cfg, deep_at,
+                      backend=backend)
 
 
 def verify(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
            cfg: PlonkishConfig = PlonkishConfig(), device=None,
-           strict: bool = None) -> bool:
+           strict: bool = None, backend=None) -> bool:
     """Structural-error-tolerant wrapper: a malformed proof (wrong lengths,
     bad types, truncated openings) must REJECT, not crash the verifier.
     `strict=True` (or env ZKEVM_VERIFY_STRICT=1) re-raises instead, so
@@ -1554,4 +1614,4 @@ def verify(ir: PlonkishIR, vk: List[int], proof: PlonkishProof,
     from .guard import tolerant_verify
     device = gl.resolve_device(device)
     return tolerant_verify(_verify_inner, ir, vk, proof, cfg, device,
-                           strict=strict)
+                           backend, strict=strict)

@@ -212,6 +212,25 @@ _EVAL_NAMES = ("a", "b", "c", "qL", "qR", "qO", "qM", "qC",
                "s1", "s2", "s3", "t_lo", "t_mid", "t_hi", "z")
 
 
+def _batch_inverse(vals: Sequence[int]) -> List[int]:
+    """[v^-1 mod R for v in vals], 0 for 0 (as pow(v, R - 2, R) gives), with
+    one modular exponentiation for the whole list (Montgomery's trick)."""
+    prefix = []
+    acc = 1
+    for v in vals:
+        prefix.append(acc)
+        if v % R:
+            acc = acc * v % R
+    inv = pow(acc, R - 2, R)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        v = vals[i] % R
+        if v:
+            out[i] = inv * prefix[i] % R
+            inv = inv * v % R
+    return out
+
+
 def plonk_prove(setup: PlonkSetup, wire_values: Tuple[Sequence[int], ...],
                 public_inputs: Sequence[int]) -> PlonkProof:
     """wire_values: three length-num_gates value vectors consistent with the
@@ -248,26 +267,22 @@ def plonk_prove(setup: PlonkSetup, wire_values: Tuple[Sequence[int], ...],
     beta = fs.challenge()
     gamma = fs.challenge()
 
-    # grand product z
+    # grand product z (the inverses of all denominators in one batch)
     s1e, s2e, s3e = setup.sigma_evals
+    nums, dens = [], []
+    for i in range(n):
+        nums.append(((av[i] + beta * dom[i] + gamma)
+                     * (bv[i] + beta * K1 * dom[i] + gamma) % R
+                     * ((cv[i] + beta * K2 * dom[i] + gamma) % R)) % R)
+        dens.append(((av[i] + beta * s1e[i] + gamma)
+                     * (bv[i] + beta * s2e[i] + gamma) % R
+                     * ((cv[i] + beta * s3e[i] + gamma) % R)) % R)
+    den_inv = _batch_inverse(dens)
     z_evals = [1]
     for i in range(n - 1):
-        num = ((av[i] + beta * dom[i] + gamma)
-               * (bv[i] + beta * K1 * dom[i] + gamma) % R
-               * ((cv[i] + beta * K2 * dom[i] + gamma) % R)) % R
-        den = ((av[i] + beta * s1e[i] + gamma)
-               * (bv[i] + beta * s2e[i] + gamma) % R
-               * ((cv[i] + beta * s3e[i] + gamma) % R)) % R
-        z_evals.append(z_evals[-1] * num % R * pow(den, R - 2, R) % R)
+        z_evals.append(z_evals[-1] * nums[i] % R * den_inv[i] % R)
     # final wrap must close the product
-    i = n - 1
-    num = ((av[i] + beta * dom[i] + gamma)
-           * (bv[i] + beta * K1 * dom[i] + gamma) % R
-           * ((cv[i] + beta * K2 * dom[i] + gamma) % R)) % R
-    den = ((av[i] + beta * s1e[i] + gamma)
-           * (bv[i] + beta * s2e[i] + gamma) % R
-           * ((cv[i] + beta * s3e[i] + gamma) % R)) % R
-    assert z_evals[-1] * num % R * pow(den, R - 2, R) % R == 1, \
+    assert z_evals[-1] * nums[-1] % R * den_inv[-1] % R == 1, \
         "copy permutation does not close (wires inconsistent)"
     z_poly = fr_ifft(z_evals)
     comms["z"] = bn.kate_commit(setup.crs, z_poly)
@@ -294,14 +309,14 @@ def plonk_prove(setup: PlonkSetup, wire_values: Tuple[Sequence[int], ...],
     co["zw"] = coset_fft(z_shift, m, shift)
     # L1(X) = (X^n - 1) / (n (X - 1))
     dom4 = _domain(m)
-    l1 = []
     zh = []
     n_inv = pow(n, R - 2, R)
+    xm1_inv = _batch_inverse([(shift * dom4[i] - 1) % R for i in range(m)])
     for i in range(m):
         x = shift * dom4[i] % R
-        zhx = (pow(x, n, R) - 1) % R
-        zh.append(zhx)
-        l1.append(zhx * n_inv % R * pow(x - 1, R - 2, R) % R)
+        zh.append((pow(x, n, R) - 1) % R)
+    l1 = [zh[i] * n_inv % R * xm1_inv[i] % R for i in range(m)]
+    zh_inv = _batch_inverse(zh)
 
     t_evals = []
     for i in range(m):
@@ -319,7 +334,7 @@ def plonk_prove(setup: PlonkSetup, wire_values: Tuple[Sequence[int], ...],
                 * co["zw"][i]) % R
         bound = (co["z"][i] - 1) * l1[i] % R
         num = (gate + alpha * perm + alpha * alpha % R * bound) % R
-        t_evals.append(num * pow(zh[i], R - 2, R) % R)
+        t_evals.append(num * zh_inv[i] % R)
     t_poly = coset_ifft(t_evals, shift)
     assert all(v == 0 for v in t_poly[3 * n:]), "quotient degree overflow"
     t_lo, t_mid, t_hi = t_poly[:n], t_poly[n:2 * n], t_poly[2 * n:3 * n]

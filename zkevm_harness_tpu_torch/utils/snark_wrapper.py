@@ -17,9 +17,10 @@ commitment chunks. In-SNARK verification of the compression STARK itself
 (transcript replay + FRI checks as PLONK gates) is the remaining increment
 and is tracked in docs/ARCHITECTURE.md.
 
-Counterpart of the "pi" tier of the JAX package's `utils/snark_wrapper.py`,
-moved across as it is. Its "binding" tier (an in-SNARK Poseidon2-BN254
-digest of the for-wrapper VK, over `plonk_builder`) is not ported yet.
+Counterpart of the JAX package's `utils/snark_wrapper.py`, moved across as
+it is: the "pi" tier and the "binding" tier (an in-SNARK Poseidon2-BN254
+digest of the for-wrapper VK, over `plonk_builder`). The "full" tier is
+`utils/snark_fri_verifier.py`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from typing import List, Optional, Sequence, Tuple
 from ..prover.compression import compress_stark_pi_to_snark_pi
 from . import bn254 as bn
 from . import plonk as pl
+from . import plonk_builder as pb
+from . import poseidon2_bn254 as p2b
 
 R = bn.R
 _CHUNK_BITS = 56  # matches compression.compress_stark_pi_to_snark_pi
@@ -78,6 +81,78 @@ def wrap_scheduler_pi(setup: pl.PlonkSetup,
     wc = [0, 0, 0, 0, 0, t1, t2, packed]
     return pl.plonk_prove(setup, (wa, wb, wc), [c[0], c[1], c[2], c[3],
                                                 packed])
+
+
+# ---------------------------------------------------------------------------
+# Binding wrapper: native Poseidon2-BN254 gates over the for-wrapper VK
+# ---------------------------------------------------------------------------
+#
+# One step beyond the packing relation toward the reference WrapperCircuit
+# (wrapper.rs:108-275): the circuit HASHES, with in-SNARK Poseidon2-BN254
+# gates (the exact sponge the for-wrapper proof's trees/transcript use),
+# the for-wrapper VK together with the scheduler PI chunks, and exposes
+# binding = P2_bn254(fw_vk[0..4] || chunks[0..4])
+# alongside the packed L1 public input. An L1 verifier holding (packed,
+# binding) is thus bound to a SPECIFIC for-wrapper verification key through
+# a native-field hash proven in-circuit; full in-SNARK FRI verification is
+# the "full" tier (utils/snark_fri_verifier.py).
+
+def build_binding_wrapper_circuit(vk_len: int = 4):
+    """PLONK circuit: PIs = [vk..., chunk0..3, packed, binding]; proves
+    the 56-bit Horner packing AND binding = P2bn254(vk || chunks), about
+    565 gates per Poseidon2 permutation."""
+    b = pb.PlonkBuilder()
+    vk = b.inputs(vk_len)
+    chunks = b.inputs(NUM_CHUNKS)
+    t1 = b.lin(_SHIFT, chunks[0], 1, chunks[1])
+    t2 = b.lin(_SHIFT, t1, 1, chunks[2])
+    packed = b.lin(_SHIFT, t2, 1, chunks[3])
+    binding = b.hash_elements(vk + chunks)
+    for v in vk + chunks + [packed, binding]:
+        b.mark_public(v)
+    return b, dict(vk=vk, chunks=chunks, packed=packed, binding=binding)
+
+
+def wrap_with_binding(fw_vk: Sequence[int], scheduler_pi: Sequence[int],
+                      crs=None, g2_powers=None):
+    """Prove the binding wrapper for a for-wrapper VK (Fr cap digests)
+    and the 4 scheduler PI chunks. Returns (setup, proof)."""
+    b, lay = build_binding_wrapper_circuit(vk_len=len(list(fw_vk)))
+    circ = b.finalize()
+    setup = pl.plonk_setup(circ, crs, g2_powers)
+    asg = {v: int(x) % R for v, x in zip(lay["vk"], fw_vk)}
+    asg.update({v: int(x) % R for v, x in
+                zip(lay["chunks"], scheduler_pi)})
+    wires, pis = b.fill(asg)
+    proof = pl.plonk_prove(setup, wires, pis)
+    return setup, proof
+
+
+def verify_binding_proof(vk: pl.PlonkVerificationKey, proof: pl.PlonkProof,
+                         expected_fw_vk: Optional[Sequence[int]] = None,
+                         expected_scheduler_pi: Optional[Sequence[int]] = None
+                         ) -> bool:
+    """PLONK-verify + recheck the exposed packing and binding digest."""
+    k = len(proof.public_inputs) - NUM_CHUNKS - 2
+    if k < 1:
+        return False
+    if expected_fw_vk is not None and k != len(list(expected_fw_vk)):
+        return False
+    fw_vk = [int(v) % R for v in proof.public_inputs[:k]]
+    chunks = [int(v) % R for v in proof.public_inputs[k:k + NUM_CHUNKS]]
+    packed = int(proof.public_inputs[k + NUM_CHUNKS]) % R
+    binding = int(proof.public_inputs[k + NUM_CHUNKS + 1]) % R
+    if packed != compress_stark_pi_to_snark_pi(chunks):
+        return False
+    if binding != p2b.hash_elements(fw_vk + chunks):
+        return False
+    if expected_fw_vk is not None and \
+            fw_vk != [int(v) % R for v in expected_fw_vk]:
+        return False
+    if expected_scheduler_pi is not None and \
+            chunks != [int(v) % R for v in expected_scheduler_pi]:
+        return False
+    return pl.plonk_verify(vk, proof)
 
 
 def verify_wrapped_proof(vk: pl.PlonkVerificationKey, proof: pl.PlonkProof,
