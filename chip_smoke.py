@@ -153,8 +153,13 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                circuit's
   23. kernels_fw  K3 (bn254_hash_rows, bn254_hash_pairs) against its plain
                version (exact Python ints) at 1,024 rows of mode 1's 72
-               columns and 2,048 pairs, timed at the production for-wrapper
-               tree's 2^18 rows and 2^17 pairs
+               columns and 2,048 pairs, at rows of Goldilocks p - 1 (widths
+               72, 7, 1), at pairs of Fr p - 1 and at 40 pairs; timed at the
+               production for-wrapper tree's 2^18 rows and 2^17 pairs beside
+               the work bound (32-bit multiplies the algorithm needs) and
+               the first design's times, the tree's whole commitment (cap
+               16) in total and per level, and the verifier's 40-path level;
+               ptxas' registers and spills of both kernels
   24. kernels  one line {"kernels": [...], "helpers": [...]}; K3's entries
                replace no TPU kernel (`replaces` names the JAX package's
                host Python hash they take over, `tpu_kernel` is null)
@@ -186,7 +191,9 @@ PROD_VK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # memory, and 67 TFLOP/s of float32, which is 132 SMs x 128 lanes x 2 (a
 # multiply-add counts twice) x the boost clock. An SM has 64 INT32 lanes, half
 # as many, and they do one add, compare or select a clock each: a quarter of
-# that figure in integer instructions a second.
+# that figure in integer instructions a second. The same figure stands for
+# the SM's 64 lanes of 32-bit integer multiplies a clock (IMAD; an IMAD.WIDE,
+# a low and a high half, is two), the rate that bounds the BN254 kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_ALU_PER_S = 67e12 / 4
 # Integer-ALU instructions per field operation, counted in the SASS that
@@ -199,14 +206,18 @@ OPS_ADD = 8
 # layers (62 each), 96 + 22 round constants, 22 internal sums (23 each)
 P2_MULS = 8 * 12 * 4 + 22 * (4 + 12)
 P2_ADDS = 9 * 62 + 96 + 22 + 22 * 23
-# Integer-ALU instructions (IMADs apart, as above) of one Poseidon2-BN254
-# permutation with its two conversions into Montgomery form and one out: the
-# dynamic count of `hash_pairs_kernel` in the SASS of `--sass` (sm_90a, CUDA
-# 12.8; `sass_dynamic_alu`, printed as `bn254_ops_per_permutation`), its
-# three round loops (4, 56 and 4 trips) counted once per trip: 67,512
-# IADD3, 64,991 ISETP, 37,670 SEL and the rest, beside 134,897 IMADs. A row
-# of `bn254_hash_rows` costs about one of these per rate-2 block.
-BN254_OPS_PER_PERMUTATION = 171322
+# The work of Poseidon2 over BN254 Fr, in 32-bit multiply instructions (the
+# operations the algorithm needs, whatever the kernel's own SASS does). At 8
+# limbs a Montgomery multiply forms 8^2 full 32 x 32 -> 64-bit products for
+# a * b and 8^2 for m * p (a low and a high half each) and 8 low halves for
+# the factors m; a squaring forms each of its 28 off-diagonal products once
+# and its 8 squares, then the same reduction, 8 x (2 x 8 + 1); taking a
+# value out of Montgomery form is that reduction alone.
+BN254_LIMBS = 8
+BN254_REDC_INSNS = BN254_LIMBS * (2 * BN254_LIMBS + 1)             # 136
+BN254_MUL_INSNS = 4 * BN254_LIMBS ** 2 + BN254_LIMBS               # 264
+BN254_SQR_INSNS = (BN254_LIMBS * (BN254_LIMBS - 1) + 2 * BN254_LIMBS
+                   + BN254_REDC_INSNS)                             # 208
 GOLDILOCKS_P = (1 << 64) - (1 << 32) + 1
 
 
@@ -234,6 +245,30 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0].strip()
+
+
+def bn254_permutation_insns(params):
+    """Multiply instructions of one Poseidon2-BN254 permutation, from the
+    parameters' t, R_F, R_P and alpha: t S-boxes a full round and one a
+    partial round, each x^alpha by squarings and multiplies (x^5 = x *
+    (x^2)^2: two and one), and t multiplies by the internal diagonal, whose
+    entries are full-size constants, a partial round. 98,752 at t = 3,
+    R_F = 8, R_P = 56, alpha = 5."""
+    t, r_f, r_p, alpha = (params[k] for k in ("t", "r_f", "r_p", "alpha"))
+    sqrs = alpha.bit_length() - 1
+    muls = bin(alpha).count("1") - 1
+    sboxes = r_f * t + r_p
+    return (sboxes * (sqrs * BN254_SQR_INSNS + muls * BN254_MUL_INSNS)
+            + r_p * t * BN254_MUL_INSNS)
+
+
+def bn254_bound_ms(params, perms, to_mont, from_mont):
+    """The least time of `perms` permutations with `to_mont` values taken
+    into Montgomery form (a multiply each) and `from_mont` out of it (a
+    reduction each), at the card's integer multiply rate."""
+    insns = (perms * bn254_permutation_insns(params)
+             + to_mont * BN254_MUL_INSNS + from_mont * BN254_REDC_INSNS)
+    return insns / PEAK_INT_ALU_PER_S * 1e3
 
 
 def sass_counts(ck, out_dir):
@@ -269,12 +304,14 @@ def sass_counts(ck, out_dir):
         c.values())) for f, c in counts.items()}
 
 
-def sass_dynamic_alu(sass_path, func_part, trips):
-    """Integer-ALU instructions (IMADs apart) that one thread of the kernel
-    whose name contains `func_part` executes, from its SASS: the
-    instructions of each loop (a backward branch and its target) counted
-    once per trip, `trips` giving the loops' trip counts in address order,
-    the rest once. None when the kernel has another number of loops."""
+def sass_dynamic_counts(sass_path, func_part, trips):
+    """Integer-ALU instructions (IMADs apart) and IMADs that one thread of
+    the kernel whose name contains `func_part` executes, from its SASS: an
+    instruction inside loops (a backward branch and its target) counted once
+    per trip of each loop around it, `trips` giving the loops' trip counts
+    in the order of their first instruction (an outer loop before the loop
+    it holds), the rest once. None when the kernel has another number of
+    loops, or loops that overlap without nesting."""
     alu = ("IADD3", "ISETP", "SEL", "LOP3", "SHF", "IADD", "VIADD", "LEA",
            "PLOP3", "P2R", "R2P", "PRMT", "IMNMX", "IABS", "POPC", "FLO")
     with open(sass_path) as f:
@@ -296,16 +333,23 @@ def sass_dynamic_alu(sass_path, func_part, trips):
         if op == "BRA":
             target = int((words[2] if pred else words[1]).rstrip(";"), 16)
         ins.append((int(parts[0][2:], 16), op, target))
-    loops = sorted((t, a) for a, op, t in ins
-                   if t is not None and t < a)
+    loops = sorted(((t, a) for a, op, t in ins if t is not None and t < a),
+                   key=lambda lh: (lh[0], -lh[1]))
     if len(loops) != len(trips):
         return None
-    total = 0
+    for (lo1, hi1), (lo2, hi2) in zip(loops, loops[1:]):
+        if lo2 <= hi1 < hi2:
+            return None
+    counts = {"alu": 0, "imad": 0}
     for addr, op, _t in ins:
-        if op in alu:
-            total += next((trip for (lo, hi), trip in zip(loops, trips)
-                           if lo <= addr <= hi), 1)
-    return total
+        kind = "imad" if op == "IMAD" else "alu" if op in alu else None
+        if kind:
+            mult = 1
+            for (lo, hi), trip in zip(loops, trips):
+                if lo <= addr <= hi:
+                    mult *= trip
+            counts[kind] += mult
+    return counts
 
 
 def device_rows(fn, host_too=True):
@@ -661,7 +705,6 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
     from zkevm_harness_tpu_torch.utils import kzg, native, serde, tracing
-    from zkevm_harness_tpu_torch.utils import poseidon2_bn254 as p2b
     from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
     from zkevm_harness_tpu_torch.vm import isa
 
@@ -1061,24 +1104,54 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                       for kk, vv in t.items()}
                   for k, t in timing_wrap.items()})
 
-    # -- kernels_fw: K3 against its plain version, timed at mode 1's shapes --
-    # the plain version is exact Python ints (seconds at these shapes): the
-    # check runs at 1,024 rows of mode 1's 72 columns and 2,048 pairs; the
-    # times at the production for-wrapper tree's shapes, its 2^18 leaves of
-    # 72 columns and the 2^17 pairs of its first level
+    timing_fw = kernels_fw_phase(dev, phase, rand_field, check_equal,
+                                 cuda_ms, errs, mode1_shape)
+    paths = {"full_chain": launches_tower, "pi_wrap": launches_pi_wrap,
+             "fw_golden": launches_fw, "eip4844": launches_blob}
+    return paths, timing_tower, timing_wrap, timing_fw
+
+
+# K3's times in its first design (four 64-bit limbs, CIOS on a * b and
+# __umul64hi with compare-and-select carries, full reduction after every
+# operation, 80 registers), at the shapes `kernels_fw` times, as an earlier
+# run of this script measured them on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6). They are stored figures, not measured by this run:
+# `kernels_fw` prints them under a key that says so, and the `kernels` line
+# never carries them.
+K3_EARLIER_MS_NOT_MEASURED = {"bn254_hash_rows": 81.7897,
+                              "bn254_hash_pairs": 2.8908}
+
+
+def kernels_fw_phase(dev, phase, rand_field, check_equal, cuda_ms, errs,
+                     mode1_shape):
+    """Phase `kernels_fw`: K3 (bn254_hash_rows, bn254_hash_pairs) against
+    its plain version, then timed at the production for-wrapper tree's
+    shapes beside its work bound. The plain version is exact Python ints
+    (seconds at these shapes): the check runs at 1,024 rows of mode 1's
+    width and 2,048 pairs, and at edge inputs: rows of Goldilocks p - 1
+    (the largest packed Fr) at three widths, pairs of Fr p - 1 in every
+    lane. The times: the tree's 2^(log_n + 1) leaves and the pairs of its
+    first level, the whole tree's commitment (cap 16) in total and per
+    level, and the verifier's level of 40 paths. Returns the timings."""
+    import numpy as np
+    import torch
+
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import hash_backend as hb
+    from zkevm_harness_tpu_torch.utils import poseidon2_bn254 as p2b
+
     rng = np.random.default_rng(254)
-    fr = sw.R
+    fr = p2b.FR
+    params = p2b.get_params_bn254()
 
-    def fr_limbs(k):
-        words = rng.integers(0, 1 << 63, size=(k, 4), dtype=np.int64)
-        vals = [sum(int(w) << (63 * j) for j, w in enumerate(ws)) % fr
-                for ws in words.tolist()]
-        vals[:3] = [0, 1, fr - 1][:k]
+    def fr_limbs(k, vals=None):
+        if vals is None:
+            words = rng.integers(0, 1 << 63, size=(k, 4), dtype=np.int64)
+            vals = [sum(int(w) << (63 * j) for j, w in enumerate(ws)) % fr
+                    for ws in words.tolist()]
+            vals[:3] = [0, 1, fr - 1][:k]
         return torch.from_numpy(p2b.to_limbs(vals))
-
-    def bn254_bound(perms):
-        ops = perms * BN254_OPS_PER_PERMUTATION
-        return ops / PEAK_INT_ALU_PER_S * 1e3, "operations"
 
     def plain_once(fn, arg):
         """The plain version's digests and host milliseconds (one call)."""
@@ -1086,56 +1159,116 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
         out = fn(arg)
         return out, (time.perf_counter() - t) * 1e3
 
-    timing_fw = {}
+    def same(name, fn, plain, arg):
+        want, ms = plain_once(plain, arg.cpu())
+        return check_equal(name, fn(arg.to(dev)), want.to(dev)), ms
+
     width, log_n = mode1_shape
     rows = rand_field((width, 1024))
-    want, ms_plain_rows = plain_once(ck.bn254_hash_rows_plain, rows.cpu())
-    errs["bn254_hash_rows"] = check_equal(
-        "bn254_hash_rows mode-1 width", ck.bn254_hash_rows(rows),
-        want.to(dev))
+    err_rows, ms_plain_rows = same("bn254_hash_rows mode-1 width",
+                                   ck.bn254_hash_rows,
+                                   ck.bn254_hash_rows_plain, rows)
     pairs = fr_limbs(2 * 2048)
-    want, ms_plain_pairs = plain_once(ck.bn254_hash_pairs_plain, pairs)
-    errs["bn254_hash_pairs"] = check_equal(
-        "bn254_hash_pairs 2048", ck.bn254_hash_pairs(pairs.to(dev)),
-        want.to(dev))
-    perms_per_row = (-(-width // 3) + 1) // 2
+    err_pairs, ms_plain_pairs = same("bn254_hash_pairs 2048",
+                                     ck.bn254_hash_pairs,
+                                     ck.bn254_hash_pairs_plain, pairs)
+    top = gl.P - 1
+    edges = {}
+    for w in (width, 7, 1):
+        edges[f"rows_p_minus_1_w{w}"] = same(
+            f"bn254_hash_rows of p - 1, width {w}", ck.bn254_hash_rows,
+            ck.bn254_hash_rows_plain,
+            gl.from_u64(np.full((w, 64), top, dtype=np.uint64), dev))[0]
+    edges["pairs_p_minus_1"] = same(
+        "bn254_hash_pairs of p - 1", ck.bn254_hash_pairs,
+        ck.bn254_hash_pairs_plain, fr_limbs(128, [fr - 1] * 128))[0]
+    errs["bn254_hash_rows"] = max(err_rows, *(
+        v for k, v in edges.items() if k.startswith("rows")))
+    errs["bn254_hash_pairs"] = max(err_pairs, edges["pairs_p_minus_1"])
+
+    n_fr = -(-width // 3)
+    perms_per_row = (n_fr + 1) // 2
     check = {"bn254_hash_rows": ([width, 1024], rows, ms_plain_rows,
                                  1024 * perms_per_row),
              "bn254_hash_pairs": ([2 * 2048, 4], pairs.to(dev),
                                   ms_plain_pairs, 2048)}
     leaves = 2 << log_n  # rate 2
+    # (shape, input, permutations, values into / out of Montgomery form,
+    # bytes)
     prod = {"bn254_hash_rows": ([width, leaves], rand_field((width, leaves)),
-                                leaves * perms_per_row,
+                                leaves * perms_per_row, leaves * n_fr, leaves,
                                 width * leaves * 8 + leaves * 32),
             "bn254_hash_pairs": ([leaves, 4], fr_limbs(leaves).to(dev),
-                                 leaves // 2, leaves * 32 + leaves * 16)}
+                                 leaves // 2, leaves, leaves // 2,
+                                 leaves * 32 + leaves * 16)}
+    timing_fw = {}
     for name, fn in (("bn254_hash_rows", ck.bn254_hash_rows),
                      ("bn254_hash_pairs", ck.bn254_hash_pairs)):
         cshape, carg, cplain, cperms = check[name]
-        pshape, parg, pperms, pbytes = prod[name]
-        bound, by = bn254_bound(pperms)
+        pshape, parg, pperms, pin, pout, pbytes = prod[name]
+        ops_ms = bn254_bound_ms(params, pperms, pin, pout)
         bytes_ms = pbytes / PEAK_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: fn(parg), 1, 5)
+        bound = max(ops_ms, bytes_ms)
         timing_fw[name] = {
-            "shape": pshape, "permutations": pperms,
-            "ms": cuda_ms(lambda: fn(parg), 1, 5),
-            "bound_ms": max(bound, bytes_ms),
-            "bound_by": by if bound >= bytes_ms else "bytes",
+            "shape": pshape, "permutations": pperms, "ms": ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": bound / ms,
             "plain_ms": cplain, "plain_shape": cshape,
             "check_ms": cuda_ms(lambda: fn(carg), 1, 5),
             "check_permutations": cperms}
         del parg
     del rows, pairs
+
+    # the whole tree, as the prover commits it, and its levels one by one
+    cols = rand_field((width, leaves))
+    backend = hb.Bn254Backend(dev)
+    tree = backend.commit_rows(cols, 16)
+    commit_ms = cuda_ms(lambda: backend.commit_rows(cols, 16), 1, 3)
+    levels = [{"nodes": leaves, "ms": timing_fw["bn254_hash_rows"]["ms"],
+               "bound_ms": timing_fw["bn254_hash_rows"]["bound_ms"]}]
+    for lvl in tree.levels[:-1]:
+        m = lvl.shape[0] // 2
+        levels.append({"nodes": m,
+                       "ms": cuda_ms(lambda: ck.bn254_hash_pairs(lvl), 2, 5),
+                       "bound_ms": bn254_bound_ms(params, m, 2 * m, m)})
+    del cols, tree
+    commit = {"shape": [width, leaves], "cap": 16, "ms": commit_ms,
+              "bound_ms": sum(lv["bound_ms"] for lv in levels),
+              "levels_ms_sum": sum(lv["ms"] for lv in levels),
+              "levels": levels}
+    # the verifier's level: one pair per opened path, 40 queries
+    path = fr_limbs(80)
+    err_path, _ = same("bn254_hash_pairs 40", ck.bn254_hash_pairs,
+                       ck.bn254_hash_pairs_plain, path)
+    errs["bn254_hash_pairs"] = max(errs["bn254_hash_pairs"], err_path)
+    path = path.to(dev)
+    verifier_level = {"pairs": 40,
+                      "ms": cuda_ms(lambda: ck.bn254_hash_pairs(path), 10,
+                                    200),
+                      "bound_ms": bn254_bound_ms(params, 40, 80, 40)}
     torch.cuda.empty_cache()
+    report = ck.ptxas_report(ck.BUILD_LOG.get("poseidon2_bn254", ""))
+    ptxas = {k: v for name, v in report.items()
+             for k in ("hash_rows_kernel", "hash_pairs_kernel") if k in name}
+
+    def r4(d):
+        return {k: (round(v, 4) if isinstance(v, float) else
+                    r4(v) if isinstance(v, dict) else
+                    [r4(x) for x in v] if isinstance(v, list) and v
+                    and isinstance(v[0], dict) else v)
+                for k, v in d.items()}
+
     phase("kernels_fw", tolerance=0,
           max_abs_err={k: errs[k] for k in ("bn254_hash_rows",
                                             "bn254_hash_pairs")},
-          ops_per_permutation=BN254_OPS_PER_PERMUTATION,
-          timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
-                      for kk, vv in t.items()}
-                  for k, t in timing_fw.items()})
-    paths = {"full_chain": launches_tower, "pi_wrap": launches_pi_wrap,
-             "fw_golden": launches_fw, "eip4844": launches_blob}
-    return paths, timing_tower, timing_wrap, timing_fw
+          edge_inputs=edges,
+          work_insns_per_permutation=bn254_permutation_insns(params),
+          ptxas=ptxas, timing={k: r4(t) for k, t in timing_fw.items()},
+          earlier_design_ms_not_measured=K3_EARLIER_MS_NOT_MEASURED,
+          commit=r4(commit), verifier_level=r4(verifier_level))
+    return timing_fw
 
 
 def wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded):
@@ -1610,12 +1743,16 @@ def main(argv=None) -> int:
         f"zkevm_harness_tpu_torch/csrc/{n}.cu" for n in ck.SOURCES])
 
     if args.sass:
-        # K3's count behind BN254_OPS_PER_PERMUTATION: one pair hash is
-        # one permutation (round loops of 4, 56 and 4 trips)
-        phase("sass", kernels=sass_counts(ck, args.sass),
-              bn254_ops_per_permutation=sass_dynamic_alu(
-                  os.path.join(args.sass, "poseidon2_bn254.sass"),
-                  "hash_pairs_kernel", (4, 56, 4)))
+        # diagnostics of K3: what one pair hash, one permutation with its
+        # conversions, executes; the full rounds' loops of 4 trips each hold
+        # a loop of 3 (one S-box a trip), the partial rounds' loop has 56
+        kernels = sass_counts(ck, args.sass)  # writes the .sass files
+        counts = sass_dynamic_counts(
+            os.path.join(args.sass, "poseidon2_bn254.sass"),
+            "hash_pairs_kernel", (4, 3, 56, 4, 3)) or {}
+        phase("sass", kernels=kernels,
+              sass_alu_per_permutation=counts.get("alu"),
+              sass_imad_per_permutation=counts.get("imad"))
 
     # -- 3. kernels against their plain versions ----------------------------
     def check_equal(name, got, want):

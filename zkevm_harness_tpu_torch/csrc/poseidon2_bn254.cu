@@ -19,227 +19,200 @@
 //   bn254_hash_pairs: (2m, 4) -> (m, 4), node i = permute([in[2i], in[2i+1],
 //                     0])[0], one Merkle level.
 //
-// Arithmetic: Fr in Montgomery form (R = 2^256) as four 64-bit limbs, CIOS
-// multiplication on 64 x 64 -> 128-bit products (a * b and __umul64hi).
-// 2p < 2^256, so the CIOS result needs one conditional subtraction and no
-// fifth limb at the end. Round constants and the internal diagonal sit in
-// __constant__ memory in Montgomery form, converted on the host from the
-// port's params/poseidon2_bn254.json (bn254_set_constants). Digests leave in
-// canonical form.
+// Bound on an H100: integer multiplies. A permutation is 80 S-boxes (two
+// squarings and one multiply each) and 168 multiplies by the internal
+// diagonal, whose entries are full-size Fr constants. At eight 32-bit limbs
+// a Montgomery multiply is 264 multiply instructions and a squaring 208
+// (bn254_fr.cuh), so 98,752 a permutation, plus a multiply per Fr converted
+// into Montgomery form and a reduction per digest out of it; the card
+// retires 64 integer multiplies a clock on each SM. Bytes are 1-3% of that.
 //
-// Bound on an H100: per permutation 80 S-boxes (3 multiplies each) and 168
-// diagonal multiplies, about 400 Montgomery multiplies of some 100 integer
-// instructions each, against 24-96 bytes read and 32 written per sponge: the
-// integer ALUs bound it, not memory. A simple kernel first: one thread per
-// sponge, no shared memory, no wgmma (which has no 256-bit integer form).
+// What the design does about it:
+//   - Carries ride the carry flag: the field arithmetic is bn254_fr.cuh's
+//     PTX carry chains (mad.lo.cc / madc.hi.cc / addc), two accumulators
+//     per multiply as in sppark's mont_t, no compare and select per carry.
+//   - Lazy reduction: every Fr between operations lies in [0, 2p), not
+//     [0, p). A Montgomery product of two such values is below 2p with no
+//     final subtraction; an add subtracts 2p where the sum reaches it
+//     (fr_add: inputs summing below 4p). The three-lane sums of the linear
+//     layers take two such adds, since 6p does not fit 256 bits. Only a
+//     digest is reduced to [0, p), once, as it leaves.
+//   - Waves: ptxas gives the kernels 62 (rows) and 60 (pairs) registers
+//     with no spill, so 8 blocks of 128 stay on an SM, 135,168 threads on
+//     the card at once: a 2^17-node level runs in one wave, 2^18 rows in
+//     two. The source forces no bound, since the waves gain little:
+//     tools/k3_launch_bounds.py builds this file beside forms bound to 8
+//     blocks an SM (64 registers) and to 6 (78-80, spilling in the pairs
+//     kernel), and times both within 1% of this one (PERF.md).
+//   - The partial round's diagonal multiplies of lanes 1 and 2 depend only
+//     on the state before the S-box: independent chains that the scheduler
+//     may overlap with the S-box's. They come after it in the source, so
+//     their 16 words are not held across it beside the squarings' 512-bit
+//     products; 8 warps a scheduler hide the latency of the serial chains.
+//   - The round loops stay loops (unroll 1), and a full round's three
+//     S-boxes are one S-box in a loop of three trips with the lanes turning
+//     round: the code of a permutation fits the instruction cache.
+// Round constants and the diagonal sit in __constant__ memory in Montgomery
+// form, 32-bit limbs (the same bytes as 64-bit little-endian limbs), set from
+// the port's params/poseidon2_bn254.json on the host (bn254_set_constants);
+// every thread reads the same constant at the same time, a broadcast.
 //
 // Plain C interface: the launchers enqueue on the given stream, do not
 // synchronise, allocate nothing, and return cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bn254_fr.cuh"
+
 namespace {
+
+using bn254::Fr;
+using bn254::fr_add;
+using bn254::fr_mul;
+using bn254::fr_sqr;
 
 constexpr int T = 3;
 constexpr int R_F = 8;
 constexpr int R_P = 56;
+constexpr int L = bn254::N;  // 32-bit limbs of an Fr
 constexpr int kThreads = 128;
 
-// Fr, little-endian 64-bit limbs, and -p^-1 mod 2^64.
-constexpr uint64_t P0 = 0x43e1f593f0000001ULL;
-constexpr uint64_t P1 = 0x2833e84879b97091ULL;
-constexpr uint64_t P2 = 0xb85045b68181585dULL;
-constexpr uint64_t P3 = 0x30644e72e131a029ULL;
-constexpr uint64_t INV = 0xc2e1f593efffffffULL;
+__constant__ uint32_t c_r2[L];             // 2^512 mod p
+__constant__ uint32_t c_ext[R_F * T * L];  // 4 initial, then 4 final rounds
+__constant__ uint32_t c_int[R_P * L];
+__constant__ uint32_t c_diag[T * L];
 
-struct Fr {
-  uint64_t v[4];
-};
-
-__constant__ uint64_t c_r2[4];             // 2^512 mod p
-__constant__ uint64_t c_ext[R_F * T * 4];  // 4 initial, then 4 final rounds
-__constant__ uint64_t c_int[R_P * 4];
-__constant__ uint64_t c_diag[T * 4];
-
-// a * b + c + carry -> low word; carry <- high word. Cannot overflow:
-// (2^64 - 1)^2 + 2 (2^64 - 1) = 2^128 - 1.
-__device__ __forceinline__ uint64_t mac(uint64_t a, uint64_t b, uint64_t c, uint64_t& carry) {
-  uint64_t lo = a * b;
-  uint64_t hi = __umul64hi(a, b);
-  lo += c;
-  hi += (lo < c);
-  lo += carry;
-  hi += (lo < carry);
-  carry = hi;
-  return lo;
-}
-
-__device__ __forceinline__ uint64_t adc(uint64_t a, uint64_t b, uint64_t& carry) {
-  uint64_t s = a + b;
-  uint64_t c1 = s < a;
-  uint64_t s2 = s + carry;
-  uint64_t c2 = s2 < s;
-  carry = c1 + c2;
-  return s2;
-}
-
-__device__ __forceinline__ uint64_t sbb(uint64_t a, uint64_t b, uint64_t& borrow) {
-  uint64_t d = a - b;
-  uint64_t b1 = a < b;
-  uint64_t d2 = d - borrow;
-  uint64_t b2 = d < borrow;
-  borrow = b1 + b2;
-  return d2;
-}
-
-// x - p where x >= p; x < 2p on entry.
-__device__ __forceinline__ void reduce_once(Fr& x) {
-  uint64_t borrow = 0;
-  uint64_t d0 = sbb(x.v[0], P0, borrow);
-  uint64_t d1 = sbb(x.v[1], P1, borrow);
-  uint64_t d2 = sbb(x.v[2], P2, borrow);
-  uint64_t d3 = sbb(x.v[3], P3, borrow);
-  if (!borrow) {
-    x.v[0] = d0;
-    x.v[1] = d1;
-    x.v[2] = d2;
-    x.v[3] = d3;
-  }
-}
-
-// a + b mod p; a, b < p < 2^254, so the sum fits four limbs.
-__device__ __forceinline__ Fr fr_add(const Fr& a, const Fr& b) {
+__device__ __forceinline__ Fr load_const(const uint32_t* c) {
   Fr r;
-  uint64_t carry = 0;
-  r.v[0] = adc(a.v[0], b.v[0], carry);
-  r.v[1] = adc(a.v[1], b.v[1], carry);
-  r.v[2] = adc(a.v[2], b.v[2], carry);
-  r.v[3] = adc(a.v[3], b.v[3], carry);
-  reduce_once(r);
-  return r;
-}
-
-// Montgomery product a * b / 2^256 mod p (CIOS); a, b < p.
-__device__ __forceinline__ Fr mont_mul(const Fr& a, const Fr& b) {
-  uint64_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint64_t bi = b.v[i];
-    uint64_t c = 0;
-    t0 = mac(a.v[0], bi, t0, c);
-    t1 = mac(a.v[1], bi, t1, c);
-    t2 = mac(a.v[2], bi, t2, c);
-    t3 = mac(a.v[3], bi, t3, c);
-    uint64_t c_hi = 0;
-    t4 = adc(t4, c, c_hi);
-    const uint64_t m = t0 * INV;
-    c = 0;
-    (void)mac(m, P0, t0, c);  // low word is 0 by the choice of m
-    t0 = mac(m, P1, t1, c);
-    t1 = mac(m, P2, t2, c);
-    t2 = mac(m, P3, t3, c);
-    uint64_t c_top = 0;
-    t3 = adc(t4, c, c_top);
-    t4 = c_hi + c_top;
-  }
-  Fr r = {{t0, t1, t2, t3}};  // < 2p < 2^256, so t4 is 0 here
-  reduce_once(r);
+  for (int j = 0; j < L; ++j) r.v[j] = c[j];
   return r;
 }
 
-__device__ __forceinline__ Fr load_const(const uint64_t* c) {
-  Fr r = {{c[0], c[1], c[2], c[3]}};
-  return r;
-}
+// x < p (a packed row value, below 2^193, or a canonical input) -> x * R mod
+// p, below 2p.
+__device__ __forceinline__ Fr to_mont(const Fr& x) { return fr_mul(x, load_const(c_r2)); }
 
-__device__ __forceinline__ Fr to_mont(const Fr& x) {
-  return mont_mul(x, load_const(c_r2));
-}
-
-__device__ __forceinline__ Fr from_mont(const Fr& x) {
-  Fr one = {{1, 0, 0, 0}};
-  return mont_mul(x, one);
-}
-
+// [0, 2p) -> [0, 2p).
 __device__ __forceinline__ Fr sbox(const Fr& x) {
-  Fr x2 = mont_mul(x, x);
-  Fr x4 = mont_mul(x2, x2);
-  return mont_mul(x4, x);
+  const Fr x2 = fr_sqr(x);
+  const Fr x4 = fr_sqr(x2);
+  return fr_mul(x4, x);
 }
 
-// circ(2, 1, 1): y_i = x_i + (x_0 + x_1 + x_2).
+// circ(2, 1, 1): y_i = x_i + (x_0 + x_1 + x_2). [0, 2p) -> [0, 2p): the sum
+// of three lanes is taken two at a time, each add below 4p.
 __device__ __forceinline__ void external_linear(Fr* s) {
-  Fr tot = fr_add(fr_add(s[0], s[1]), s[2]);
+  const Fr tot = fr_add(fr_add(s[0], s[1]), s[2]);
   s[0] = fr_add(s[0], tot);
   s[1] = fr_add(s[1], tot);
   s[2] = fr_add(s[2], tot);
 }
 
+// One full round: lane i gets the S-box of s_i + c_i (below 3p, brought
+// below 2p), then the external layer. One S-box per trip: the lanes turn
+// round, so after three trips they are in order again.
 __device__ __forceinline__ void full_round(Fr* s, int r) {
-#pragma unroll
-  for (int i = 0; i < T; ++i) s[i] = sbox(fr_add(s[i], load_const(c_ext + (r * T + i) * 4)));
+#pragma unroll 1
+  for (int i = 0; i < T; ++i) {
+    const Fr x = sbox(fr_add(s[0], load_const(c_ext + (r * T + i) * L)));
+    s[0] = s[1];
+    s[1] = s[2];
+    s[2] = x;
+  }
   external_linear(s);
 }
 
-// The permutation on a Montgomery-form state. The round loops stay loops
-// (unroll 1): unrolled, the 400 inlined multiplies would not fit the
-// instruction cache, and the SASS keeps one body per loop, which the bound's
-// instruction count reads.
+// One partial round: the S-box on lane 0, then y_i = d_i x_i + sum(x).
+// d_i x_i < 2p * p / 2^256 + p < 1.4p and the sum < 2p, so each add is below
+// 4p and gives [0, 2p). The multiplies of lanes 1 and 2 need only the state
+// before the S-box, but come after it in the source, so that their 16 words
+// are not held across it.
+__device__ __forceinline__ void partial_round(Fr* s, int r) {
+  const Fr x = sbox(fr_add(s[0], load_const(c_int + r * L)));
+  const Fr y1 = fr_mul(s[1], load_const(c_diag + 1 * L));
+  const Fr y2 = fr_mul(s[2], load_const(c_diag + 2 * L));
+  const Fr tot = fr_add(fr_add(x, s[1]), s[2]);
+  s[0] = fr_add(fr_mul(x, load_const(c_diag)), tot);
+  s[1] = fr_add(y1, tot);
+  s[2] = fr_add(y2, tot);
+}
+
+// The permutation on a state in [0, 2p) Montgomery form; the result is in
+// [0, 2p) too.
 __device__ __forceinline__ void permute(Fr* s) {
   external_linear(s);
 #pragma unroll 1
   for (int r = 0; r < R_F / 2; ++r) full_round(s, r);
 #pragma unroll 1
-  for (int r = 0; r < R_P; ++r) {
-    s[0] = sbox(fr_add(s[0], load_const(c_int + r * 4)));
-    Fr tot = fr_add(fr_add(s[0], s[1]), s[2]);
-#pragma unroll
-    for (int i = 0; i < T; ++i) s[i] = fr_add(mont_mul(load_const(c_diag + i * 4), s[i]), tot);
-  }
+  for (int r = 0; r < R_P; ++r) partial_round(s, r);
 #pragma unroll 1
   for (int r = R_F / 2; r < R_F; ++r) full_round(s, r);
 }
 
+// [0, 2p) Montgomery form -> the canonical value as 4 little-endian 64-bit
+// limbs: out of Montgomery form gives [0, p], one subtraction [0, p).
 __device__ __forceinline__ void store_digest(uint64_t* out, long i, const Fr& x) {
-  Fr c = from_mont(x);
+  const Fr c = bn254::fr_reduce(bn254::fr_from_mont(x));
 #pragma unroll
-  for (int j = 0; j < 4; ++j) out[i * 4 + j] = c.v[j];
+  for (int j = 0; j < 4; ++j)
+    out[i * 4 + j] = (uint64_t)c.v[2 * j] | ((uint64_t)c.v[2 * j + 1] << 32);
 }
 
-__global__ void hash_rows_kernel(const uint64_t* __restrict__ cols, long w, long k,
-                                 uint64_t* __restrict__ out) {
-  long r = (long)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ Fr zero_fr() {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < L; ++j) r.v[j] = 0;
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hash_rows_kernel(const uint64_t* __restrict__ cols, long w, long k,
+                     uint64_t* __restrict__ out) {
+  const long r = (long)blockIdx.x * kThreads + threadIdx.x;
   if (r >= k) return;
-  const long n_fr = (w + 2) / 3;       // packed Fr elements of the row
-  const long blocks = (n_fr + 1) / 2;  // rate-2 absorptions, zero-padded
   Fr s[T];
 #pragma unroll
-  for (int i = 0; i < T; ++i) s[i] = Fr{{0, 0, 0, 0}};
-  for (long blk = 0; blk < blocks; ++blk) {
+  for (int i = 0; i < T; ++i) s[i] = zero_fr();
+  // one rate-2 absorption of six columns (two packed Fr, zero-padded) a trip
+  for (int c0 = 0; c0 < (int)w; c0 += 6) {
 #pragma unroll
     for (int lane = 0; lane < 2; ++lane) {
-      const long e = 2 * blk + lane;
-      Fr v = {{0, 0, 0, 0}};
+      Fr v = zero_fr();
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const long c = 3 * e + j;
-        if (c < w) v.v[j] = cols[c * k + r];
+        const int c = c0 + 3 * lane + j;
+        if (c < (int)w) {
+          const uint64_t x = cols[(long)c * k + r];
+          v.v[2 * j] = (uint32_t)x;
+          v.v[2 * j + 1] = (uint32_t)(x >> 32);
+        }
       }
-      s[lane] = to_mont(v);  // v < 2^192 < p
+      s[lane] = to_mont(v);  // v < 2^193 < p
     }
     permute(s);
   }
   store_digest(out, r, s[0]);
 }
 
-__global__ void hash_pairs_kernel(const uint64_t* __restrict__ in, long m,
-                                  uint64_t* __restrict__ out) {
-  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ Fr load_fr(const uint64_t* p) {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    r.v[2 * j] = (uint32_t)p[j];
+    r.v[2 * j + 1] = (uint32_t)(p[j] >> 32);
+  }
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    hash_pairs_kernel(const uint64_t* __restrict__ in, long m, uint64_t* __restrict__ out) {
+  const long i = (long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= m) return;
   Fr s[T];
-  s[0] = to_mont(load_const(in + (2 * i) * 4));
-  s[1] = to_mont(load_const(in + (2 * i + 1) * 4));
-  s[2] = Fr{{0, 0, 0, 0}};
+  s[0] = to_mont(load_fr(in + (2 * i) * 4));  // canonical inputs, < p
+  s[1] = to_mont(load_fr(in + (2 * i + 1) * 4));
+  s[2] = zero_fr();
   permute(s);
   store_digest(out, i, s[0]);
 }
@@ -248,18 +221,19 @@ __global__ void hash_pairs_kernel(const uint64_t* __restrict__ in, long m,
 
 extern "C" {
 
-// Host pointers, Montgomery form, 4 limbs per element: r2 (1 element), ext
-// (R_F * T: the 4 initial rounds then the 4 final), internal (R_P), diag
-// (T). Copies them into the current device's constant memory; call once per
-// device before the first launch.
+// Host pointers, Montgomery form, 4 little-endian 64-bit limbs per element
+// (the same bytes as 8 32-bit limbs): r2 (1 element), ext (R_F * T: the 4
+// initial rounds then the 4 final), internal (R_P), diag (T). Copies them
+// into the current device's constant memory; call once per device before the
+// first launch.
 int bn254_set_constants(const void* r2, const void* ext, const void* internal, const void* diag) {
-  cudaError_t e = cudaMemcpyToSymbol(c_r2, r2, sizeof(uint64_t) * 4);
+  cudaError_t e = cudaMemcpyToSymbol(c_r2, r2, sizeof(uint32_t) * L);
   if (e != cudaSuccess) return (int)e;
-  e = cudaMemcpyToSymbol(c_ext, ext, sizeof(uint64_t) * R_F * T * 4);
+  e = cudaMemcpyToSymbol(c_ext, ext, sizeof(uint32_t) * R_F * T * L);
   if (e != cudaSuccess) return (int)e;
-  e = cudaMemcpyToSymbol(c_int, internal, sizeof(uint64_t) * R_P * 4);
+  e = cudaMemcpyToSymbol(c_int, internal, sizeof(uint32_t) * R_P * L);
   if (e != cudaSuccess) return (int)e;
-  e = cudaMemcpyToSymbol(c_diag, diag, sizeof(uint64_t) * T * 4);
+  e = cudaMemcpyToSymbol(c_diag, diag, sizeof(uint32_t) * T * L);
   return (int)e;
 }
 

@@ -20,8 +20,9 @@ build, the load and the launch have no fallback.
 
 Build: at the first call with a CUDA tensor, one `nvcc` per source (all
 started together) compiles `csrc/*.cu` into shared libraries under `build/`
-in the package, which are loaded with `ctypes`. A library is rebuilt when a
-source is newer than it. The module itself imports without `nvcc`.
+in the package, which are loaded with `ctypes`. A library is rebuilt when its
+source or any header under `csrc/` is newer than it. The module itself
+imports without `nvcc`.
 
 A field element is one int64 holding the canonical u64 bit pattern (< p); a
 BN254 Fr digest is four int64 limbs, little-endian 64-bit words.
@@ -32,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -88,17 +90,26 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    header under csrc/ (a source may include any of them)."""
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
     built = os.path.getmtime(lib)
-    deps = [os.path.join(CSRC_DIR, f"{name}.cu"),
-            os.path.join(CSRC_DIR, "goldilocks.cuh")]
+    deps = [os.path.join(CSRC_DIR, f"{name}.cu")] + [
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith(".cuh")]
     return any(os.path.getmtime(d) > built for d in deps)
 
 
+# nvcc's output of the last build of each source: ptxas' registers, stack
+# and spills of every kernel (-Xptxas -v)
+BUILD_LOG: Dict[str, str] = {}
+
+
 def build_all(force: bool = False, verbose: bool = False) -> float:
-    """Compile every stale source, one nvcc each, all started together.
+    """Compile every stale source, one nvcc each, all started together,
+    keeping each compiler report in `BUILD_LOG` (printed when `verbose`).
     Returns the seconds spent. Raises if any compile fails."""
     t0 = time.time()
     todo = [n for n in SOURCES if force or _stale(n)]
@@ -109,16 +120,14 @@ def build_all(force: bool = False, verbose: bool = False) -> float:
     procs = []
     for name in todo:
         tmp = _lib_path(name) + f".tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-I", CSRC_DIR, "-o", tmp,
-                os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC_DIR,
+               "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, tmp, proc in procs:
         out, _ = proc.communicate()
+        BUILD_LOG[name] = out
         if verbose and out:
             print(out, flush=True)
         if proc.returncode != 0:
@@ -128,6 +137,32 @@ def build_all(force: bool = False, verbose: bool = False) -> float:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.time() - t0
+
+
+def ptxas_report(text: str) -> Dict[str, Dict[str, int]]:
+    """Registers, stack frame and spill bytes of each kernel, read from
+    nvcc's `-Xptxas -v` output (`BUILD_LOG`); keyed by the kernel's
+    mangled name."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -538,20 +573,25 @@ def _mont_limbs(values) -> np.ndarray:
         [(int(v) << 256) % p2b.FR for v in values]).view(np.uint64))
 
 
+def bn254_constant_tables() -> Tuple[np.ndarray, ...]:
+    """The four arrays `bn254_set_constants` takes, (k, 4) uint64: 2^512
+    mod p, then the external rounds' constants (4 initial rounds, 4 final),
+    the internal rounds' and the diagonal, in Montgomery form."""
+    ext0, internal, ext1, diag = p2b.round_constants()
+    r2 = np.ascontiguousarray(
+        p2b.to_limbs([(1 << 512) % p2b.FR]).view(np.uint64))
+    return (r2, _mont_limbs([c for rc in ext0 + ext1 for c in rc]),
+            _mont_limbs(internal), _mont_limbs(diag))
+
+
 def _bn254_lib(device: torch.device) -> ctypes.CDLL:
     lib = _lib("poseidon2_bn254")
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     if idx not in _BN254_CONSTANTS_SET:
-        ext0, internal, ext1, diag = p2b.round_constants()
-        r2 = np.ascontiguousarray(
-            p2b.to_limbs([(1 << 512) % p2b.FR]).view(np.uint64))
-        ext = _mont_limbs([c for rc in ext0 + ext1 for c in rc])
-        ints = _mont_limbs(internal)
-        dg = _mont_limbs(diag)
+        tables = bn254_constant_tables()
         with torch.cuda.device(device):
-            rc = lib.bn254_set_constants(r2.ctypes.data, ext.ctypes.data,
-                                         ints.ctypes.data, dg.ctypes.data)
+            rc = lib.bn254_set_constants(*(t.ctypes.data for t in tables))
         _check(rc, "bn254_set_constants")
         _BN254_CONSTANTS_SET.add(idx)
     return lib
