@@ -10,7 +10,9 @@
                                      # its full chain over 8 and 7: tower,
                                      # a blob, compression for the wrapper
                                      # and the "binding" SNARK, then mode
-                                     # 1 at LDE 32 and the "pi" SNARK
+                                     # 1 at LDE 32 and the "pi" SNARK;
+                                     # the CLI, the AIR STARK engine, the
+                                     # gadget circuits
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -160,7 +162,34 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                the first design's times, the tree's whole commitment (cap
                16) in total and per level, and the verifier's 40-path level;
                ptxas' registers and spills of both kernels
-  24. kernels  one line {"kernels": [...], "helpers": [...]}; K3's entries
+  24. cli_golden  the port's CLI (python -m zkevm_harness_tpu_torch), each
+               command a process of its own on the card, five side by side:
+               `prove --log-n 8 --width 16` writes the JAX CLI's file byte
+               for byte, `verify` prints VALID on it (exit 0) and INVALID on
+               a tampered copy (exit 1), `geometry` and `geometry
+               --measured` print the JAX CLI's JSON, `generate-vks --types 8
+               --recursion` writes its VKs, `prove-block --types 8` its
+               scheduler, compression and SNARK proofs and block commitment
+               (test_artifacts/cli_*, tools/gen_cli_golden.py)
+  25. cli      the CLI at full width, one command at a time: `prove` of the
+               flagship (130 x 2^log_n, the CLI's config), `verify` in a
+               second process, a tampered copy refused; `generate-vks
+               --geometry production --types 1,5,7,10`, each VK equal to
+               test_artifacts/vk_N_production.json; `bench-kernels`; wall
+               seconds of each process and the launches of all but the
+               bench
+  26. stark_golden, stark  the fib-mul AIR through the AIR STARK engine:
+               at log_n 6 equal to test_artifacts/stark_fib_log6_proof.json;
+               at 2^20 rows under StarkConfig() proved, verified, a tampered
+               OOD value, opening and trace refused; stage seconds,
+               `_zh_over_last_inv` on the card and in host ints, launches,
+               peak memory
+  27. gadgets_golden  the five gadget circuits (GF(p^2) chain, inverse
+               cells, FRI fold, transcript, Merkle path) made on the card,
+               VKs and proofs equal test_artifacts/gadget_*
+  28. ref_serde  the main path's flagship proof through the reference's
+               JSON dialect and back verifies; key sets as the reference's
+  29. kernels  one line {"kernels": [...], "helpers": [...]}; K3's entries
                replace no TPU kernel (`replaces` names the JAX package's
                host Python hash they take over, `tpu_kernel` is null)
 
@@ -178,46 +207,20 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+
+from zkevm_harness_tpu_torch.utils.kernel_bench import (
+    OPS_ADD, OPS_MUL, P2_ADDS, P2_MULS, PEAK_BYTES_PER_S, PEAK_INT_ALU_PER_S,
+    bn254_bound_ms, bn254_permutation_insns, nvidia_smi_line)
 
 WIDTH = 130  # the flagship's MainVM-shaped trace width; never cut
 MAIN_VM_CYCLES = 5585  # cycles per MainVM instance (cycles_per_vm_snapshot)
-GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "test_artifacts")
-PROD_VK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "setup", "setup", "base_layer")
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_DIR = os.path.join(REPO_DIR, "test_artifacts")
+PROD_VK_DIR = os.path.join(REPO_DIR, "setup", "setup", "base_layer")
 
-# Published peaks of one H100 SXM used for the bounds: 3.35 TB/s of device
-# memory, and 67 TFLOP/s of float32, which is 132 SMs x 128 lanes x 2 (a
-# multiply-add counts twice) x the boost clock. An SM has 64 INT32 lanes, half
-# as many, and they do one add, compare or select a clock each: a quarter of
-# that figure in integer instructions a second. The same figure stands for
-# the SM's 64 lanes of 32-bit integer multiplies a clock (IMAD; an IMAD.WIDE,
-# a low and a high half, is two), the rate that bounds the BN254 kernel.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT_ALU_PER_S = 67e12 / 4
-# Integer-ALU instructions per field operation, counted in the SASS that
-# `--sass` writes (built for sm_90a): a multiply is 7 IADD3, 6 ISETP, 6 SEL
-# and 1 VIADD, beside 9 IMADs that run on the float32 lanes and so are not
-# the tighter count; an add is 2 IADD3, 4 ISETP and 2 SEL beside 2 IMADs.
-OPS_MUL = 20
-OPS_ADD = 8
-# per Poseidon2 state: 8*12*4 + 22*(4+12) multiplies; adds of 9 external
-# layers (62 each), 96 + 22 round constants, 22 internal sums (23 each)
-P2_MULS = 8 * 12 * 4 + 22 * (4 + 12)
-P2_ADDS = 9 * 62 + 96 + 22 + 22 * 23
-# The work of Poseidon2 over BN254 Fr, in 32-bit multiply instructions (the
-# operations the algorithm needs, whatever the kernel's own SASS does). At 8
-# limbs a Montgomery multiply forms 8^2 full 32 x 32 -> 64-bit products for
-# a * b and 8^2 for m * p (a low and a high half each) and 8 low halves for
-# the factors m; a squaring forms each of its 28 off-diagonal products once
-# and its 8 squares, then the same reduction, 8 x (2 x 8 + 1); taking a
-# value out of Montgomery form is that reduction alone.
-BN254_LIMBS = 8
-BN254_REDC_INSNS = BN254_LIMBS * (2 * BN254_LIMBS + 1)             # 136
-BN254_MUL_INSNS = 4 * BN254_LIMBS ** 2 + BN254_LIMBS               # 264
-BN254_SQR_INSNS = (BN254_LIMBS * (BN254_LIMBS - 1) + 2 * BN254_LIMBS
-                   + BN254_REDC_INSNS)                             # 208
 GOLDILOCKS_P = (1 << 64) - (1 << 32) + 1
 
 
@@ -238,37 +241,6 @@ def main_vm_block(golden, isa):
     then Nops up to the final Ret."""
     prog = golden.loop_body(isa) * 697
     return prog + [isa.Nop()] * (MAIN_VM_CYCLES - 1 - len(prog)) + [isa.Ret()]
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0].strip()
-
-
-def bn254_permutation_insns(params):
-    """Multiply instructions of one Poseidon2-BN254 permutation, from the
-    parameters' t, R_F, R_P and alpha: t S-boxes a full round and one a
-    partial round, each x^alpha by squarings and multiplies (x^5 = x *
-    (x^2)^2: two and one), and t multiplies by the internal diagonal, whose
-    entries are full-size constants, a partial round. 98,752 at t = 3,
-    R_F = 8, R_P = 56, alpha = 5."""
-    t, r_f, r_p, alpha = (params[k] for k in ("t", "r_f", "r_p", "alpha"))
-    sqrs = alpha.bit_length() - 1
-    muls = bin(alpha).count("1") - 1
-    sboxes = r_f * t + r_p
-    return (sboxes * (sqrs * BN254_SQR_INSNS + muls * BN254_MUL_INSNS)
-            + r_p * t * BN254_MUL_INSNS)
-
-
-def bn254_bound_ms(params, perms, to_mont, from_mont):
-    """The least time of `perms` permutations with `to_mont` values taken
-    into Montgomery form (a multiply each) and `from_mont` out of it (a
-    reduction each), at the card's integer multiply rate."""
-    insns = (perms * bn254_permutation_insns(params)
-             + to_mont * BN254_MUL_INSNS + from_mont * BN254_REDC_INSNS)
-    return insns / PEAK_INT_ALU_PER_S * 1e3
 
 
 def sass_counts(ck, out_dir):
@@ -529,12 +501,11 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
             before = dict(ck.LAUNCHES)
             sd, setup_s = timed(lambda: ly.base_setup_for_type(
                 ctype, geo, device=dev))
-            # 2-4, 6, 8, 9, 11-13 under setup/, 7 and 10 in test_artifacts/;
-            # 1 and 5 have no committed production VK
+            # 2-4, 6, 8, 9, 11-13 under setup/, 1, 5, 7 and 10 in
+            # test_artifacts/ (tools/gen_block_golden.py, gen_cli_golden.py)
             vk_file = (os.path.join(PROD_VK_DIR, f"vk_{ctype}.json")
                        if ctype in committed else os.path.join(
-                           GOLDEN_DIR, f"vk_{ctype}_production.json")
-                       if ctype in (7, 10) else None)
+                           GOLDEN_DIR, f"vk_{ctype}_production.json"))
             rec = {"log_n": sd.ir.log_n, "width": sd.ir.num_witness,
                    "const_cols": sd.ir.num_const,
                    "gate_constraints": sd.ir.num_gate_constraints,
@@ -544,13 +515,11 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                    "vk_sha256": hashlib.sha256(",".join(
                        str(int(v)) for v in sd.vk).encode()).hexdigest(),
                    "setup_s": round(setup_s, 3)}
-            if vk_file is not None:  # a missing file fails the run
-                with open(vk_file) as f:
-                    if sd.vk != [int(v) for v in json.load(f)]:
-                        raise SystemExit(f"block: the production VK of type "
-                                         f"{ctype} differs from {vk_file}")
-                rec["vk_equal"] = os.path.relpath(
-                    vk_file, os.path.dirname(GOLDEN_DIR))
+            with open(vk_file) as f:  # a missing file fails the run
+                if sd.vk != [int(v) for v in json.load(f)]:
+                    raise SystemExit(f"block: the production VK of type "
+                                     f"{ctype} differs from {vk_file}")
+            rec["vk_equal"] = os.path.relpath(vk_file, REPO_DIR)
             # type 10: the first query's read and write paths
             todo = insts[:2] if ctype == 10 else insts[:1]
             for k, inst in enumerate(todo):
@@ -1642,6 +1611,418 @@ def eip4844_phase(dev, phase, bcfg, rounded):
     return launches, (stats["width"], stats["log_n"])
 
 
+# key sets of the reference's proof and VK JSON, as tests/test_ref_serde.py
+# states them (test_proofs/base_layer/basic_circuit_proof_10_0.json,
+# setup/base_layer/vk_1.json)
+REFERENCE_PROOF_KEYS = {
+    "proof_config", "public_inputs", "witness_oracle_cap",
+    "stage_2_oracle_cap", "quotient_oracle_cap", "final_fri_monomials",
+    "values_at_z", "values_at_z_omega", "values_at_0",
+    "fri_base_oracle_cap", "fri_intermediate_oracles_caps",
+    "queries_per_fri_repetition", "pow_challenge", "_marker",
+}
+REFERENCE_VK_KEYS = {"fixed_parameters", "setup_merkle_tree_cap"}
+REFERENCE_FIXED_KEYS = {
+    "parameters", "lookup_parameters", "domain_size", "total_tables_len",
+    "public_inputs_locations", "extra_constant_polys_for_selectors",
+    "table_ids_column_idxes", "quotient_degree", "selectors_placement",
+    "fri_lde_factor", "cap_size",
+}
+# production VKs generate-vks writes in phase `cli`, held against these
+PROD_VK_TYPES = (1, 5, 7, 10)
+
+
+def run_cli_batch(jobs, tmp, counts=None):
+    """Run `python -m zkevm_harness_tpu_torch *argv` for each (argv,
+    expect_rc, counted) of `jobs`, all at once, each in a process of its
+    own from the repo's root, on the card. Returns a list of (standard
+    output, wall seconds of that process). The kernel launches of each
+    counted process are added to `counts`. Fails unless every process exits
+    with its `expect_rc`."""
+    env = dict(os.environ, PYTHONPATH=REPO_DIR)
+    env.pop("ZKEVM_LAUNCHES_FILE", None)
+    procs = []
+    for i, (argv, _rc, counted) in enumerate(jobs):
+        job_env = dict(env)
+        launches_file = os.path.join(tmp, f"launches_{i}.json")
+        if counted:
+            job_env["ZKEVM_LAUNCHES_FILE"] = launches_file
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "zkevm_harness_tpu_torch", *argv],
+            cwd=REPO_DIR, env=job_env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), time.time(), launches_file))
+    done = [None] * len(procs)
+
+    def wait(i):
+        # each process's own end, whichever of them ends first
+        proc, t0, _f = procs[i]
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        done[i] = (stdout, stderr, time.time() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    out = []
+    for (argv, rc, counted), (proc, _t, launches_file), (stdout, stderr,
+                                                         secs) in zip(
+            jobs, procs, done):
+        if proc.returncode != rc:
+            raise SystemExit(f"cli {' '.join(argv)}: exit {proc.returncode}, "
+                             f"want {rc}: {stderr[-3000:]}")
+        if counted:
+            with open(launches_file) as f:
+                for k, v in json.load(f).items():
+                    counts[k] = counts.get(k, 0) + v
+            os.remove(launches_file)
+        out.append((stdout, secs))
+    return out
+
+
+def run_cli(argv, tmp, counts=None, expect_rc=0):
+    """One command of `run_cli_batch`, its launches added to `counts` when
+    that is a dict. Returns (standard output, wall seconds)."""
+    return run_cli_batch([(argv, expect_rc, counts is not None)], tmp,
+                         counts)[0]
+
+
+def file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def tampered_proof_file(path, out):
+    """A copy of a CLI proof file with its first public input changed."""
+    with open(path) as f:
+        blob = json.load(f)
+    pis = blob["proof"]["fields"]["public_inputs"]
+    pis[0] = str((int(pis[0]) + 1) % GOLDILOCKS_P)
+    with open(out, "w") as f:
+        json.dump(blob, f)
+    return out
+
+
+def cli_verify_round(tmp, proof_path, counts, shape=(), side_by_side=True):
+    """verify on the proof (VALID, exit 0) and on a tampered copy (INVALID,
+    exit 1), each in a process of its own, the two at once or one after the
+    other. Returns their seconds."""
+    bad = tampered_proof_file(proof_path, os.path.join(tmp, "tampered.json"))
+    jobs = [(["verify", *shape, "--proof", proof_path], 0, True),
+            (["verify", *shape, "--proof", bad], 1, True)]
+    if side_by_side:
+        ran = run_cli_batch(jobs, tmp, counts)
+    else:
+        ran = [run_cli_batch([job], tmp, counts)[0] for job in jobs]
+    (ok_text, ok_s), (bad_text, bad_s) = ran
+    if ok_text != "VALID\n" or bad_text != "INVALID\n":
+        raise SystemExit(f"cli verify printed {ok_text!r} and, on a "
+                         f"tampered proof, {bad_text!r}")
+    return ok_s, bad_s
+
+
+def cli_phases(args, phase, tmp):
+    """Phases `cli_golden` and `cli`: the port's CLI run as processes of
+    their own on the card. `cli_golden`: `prove` at log_n 8 x 16 writes the
+    JAX CLI's file byte for byte, `verify` accepts it and refuses a tampered
+    copy, `geometry` (and `--measured`) print the JAX CLI's JSON,
+    `generate-vks --types 8 --recursion` writes its VKs and `prove-block
+    --types 8` its scheduler, compression and SNARK proofs and block
+    commitment (test_artifacts/cli_*); these check runs go side by side.
+    `cli`, one command at a time: `prove` at the flagship's full
+    width, `verify` in a second process, a tampered copy refused; the
+    production VKs of types 1, 5, 7 and 10 from `generate-vks --geometry
+    production` equal the committed ones; `bench-kernels`. Returns the
+    kernel launches of both phases' processes (bench-kernels apart)."""
+    # -- cli_golden: five commands at once, then the two verifies ----------
+    counts_golden = {}
+    out = os.path.join(tmp, "cli_prove_log8_w16.json")
+    vks = os.path.join(tmp, "vks_testing")
+    blk = os.path.join(tmp, "block")
+    jobs = {"prove": (["prove", "--log-n", "8", "--width", "16", "--seed",
+                       "0", "--out", out], 0, True),
+            "geometry": (["geometry"], 0, False),
+            "geometry --measured": (["geometry", "--measured"], 0, False),
+            "generate_vks": (["generate-vks", "--types", "8", "--recursion",
+                              "--out", vks], 0, True),
+            "prove_block": (["prove-block", "--types", "8", "--out", blk], 0,
+                            True)}
+    ran = dict(zip(jobs, run_cli_batch(list(jobs.values()), tmp,
+                                       counts_golden)))
+    secs = {k: v[1] for k, v in ran.items()}
+    if file_bytes(out) != file_bytes(os.path.join(
+            GOLDEN_DIR, "cli_prove_log8_w16.json")):
+        raise SystemExit("cli_golden: the prove file differs from the JAX "
+                         "CLI's")
+    secs["verify"], secs["verify_tampered"] = cli_verify_round(
+        tmp, out, counts_golden)
+    for key, name in (("geometry", "cli_geometry.txt"),
+                      ("geometry --measured", "cli_geometry_measured.txt")):
+        if ran[key][0].encode() != file_bytes(os.path.join(GOLDEN_DIR, name)):
+            raise SystemExit(f"cli_golden: {key} printed another text than "
+                             "the JAX CLI")
+    for what, rel in (("base", "setup/base_layer/vk_8.json"),
+                      ("leaf", "setup/recursion_layer/vk_10.json"),
+                      ("node", "setup/recursion_layer/vk_2.json")):
+        if file_bytes(os.path.join(vks, rel)) != file_bytes(os.path.join(
+                GOLDEN_DIR, f"cli_vks8_{what}_vk.json")):
+            raise SystemExit(f"cli_golden: the {what} VK differs")
+    with open(os.path.join(GOLDEN_DIR, "cli_block_summary.json")) as f:
+        commitment = json.load(f)["block_commitment"]
+    if f"block commitment: {commitment}\n" not in ran["prove_block"][0]:
+        raise SystemExit("cli_golden: the block commitment differs")
+    for what, rel in (
+            ("scheduler", "test_proofs/recursion_layer/scheduler_proof.json"),
+            ("compression", "test_proofs/aux_layer/compression_proof_1.json"),
+            ("snark", "test_proofs/aux_layer/wrapper_proof.json")):
+        if file_bytes(os.path.join(blk, rel)) != file_bytes(os.path.join(
+                GOLDEN_DIR, f"cli_block_{what}_proof.json")):
+            raise SystemExit(f"cli_golden: the {what} proof file differs")
+    # the wall seconds of each process, the five of the first batch side by
+    # side on the card and the host
+    phase("cli_golden", prove_equal=True, verify=True, tampered_rejected=True,
+          geometry_equal=True, vks_equal=True, block_equal=True,
+          seconds_side_by_side={k: round(v, 3) for k, v in secs.items()},
+          launches=counts_golden)
+
+    # -- cli: the flagship at full width, production VKs, bench-kernels ----
+    counts = {}
+    shape = ["--log-n", str(args.log_n), "--width", str(WIDTH)]
+    out = os.path.join(tmp, "cli_prove_full.json")
+    _, prove_s = run_cli(["prove", *shape, "--out", out], tmp, counts)
+    verify_s, tampered_s = cli_verify_round(tmp, out, counts, shape,
+                                            side_by_side=False)
+    vks = os.path.join(tmp, "vks_production")
+    text, vks_s = run_cli(
+        ["generate-vks", "--geometry", "production", "--types",
+         ",".join(str(t) for t in PROD_VK_TYPES), "--out", vks], tmp, counts)
+    per_type = {}
+    for line in text.splitlines():
+        # [vks] base[t] vk written (2^a x w, 1.2s, sha256 ...)
+        if line.startswith("[vks] base["):
+            t = int(line.split("[", 2)[2].split("]")[0])
+            inner = line.split("(", 1)[1].split(",")
+            per_type[t] = {"shape": inner[0],
+                           "seconds": float(inner[1].strip().rstrip("s"))}
+    for t in PROD_VK_TYPES:
+        got = file_bytes(os.path.join(vks, f"setup/base_layer/vk_{t}.json"))
+        with open(os.path.join(GOLDEN_DIR, f"vk_{t}_production.json")) as f:
+            if json.loads(got) != json.load(f):
+                raise SystemExit(f"cli: the production VK of type {t} "
+                                 "differs from the committed one")
+        per_type[t]["vk_equal"] = f"test_artifacts/vk_{t}_production.json"
+    text, bench_s = run_cli(["bench-kernels"], tmp)
+    bench = [json.loads(line) for line in text.splitlines()
+             if line.startswith("{")]
+    for name in ("gl_mul", "poseidon2_permute"):
+        if counts.get(name, 0) <= 0:
+            raise SystemExit(f"cli launched {name} no time")
+    phase("cli", log_n=args.log_n, width=WIDTH,
+          config={"rate": 2, "cap_size": 16, "num_queries": 40,
+                  "final_fri_size": 64},
+          prove_s=round(prove_s, 3), verify_s=round(verify_s, 3),
+          verify_tampered_s=round(tampered_s, 3), verify=True,
+          tampered_rejected=True, proof_bytes=os.path.getsize(out),
+          generate_vks_s=round(vks_s, 3), production_vks=per_type,
+          bench_kernels_s=round(bench_s, 3), bench_kernels=bench,
+          launches=counts)
+    return counts_golden, counts
+
+
+def stark_phases(dev, phase):
+    """Phases `stark_golden` and `stark`: the fib-mul AIR of the JAX
+    package's STARK tests proved on the card at log_n 6 under the golden
+    config, equal to test_artifacts/stark_fib_log6_proof.json; then at 2^20
+    rows under `StarkConfig()` (LDE 4, cap 16, 40 queries, final 32): prove,
+    verify, a tampered OOD value, opening and trace refused; seconds per
+    stage, `_zh_over_last_inv` timed apart (the device form the prover runs
+    and the JAX package's host-int form); launches and peak memory. Returns
+    the launches of the 2^20 prove and verify."""
+    import numpy as np
+    import torch
+
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import stark as st
+    from zkevm_harness_tpu_torch.utils import serde, tracing
+
+    P = gl.P
+
+    def air(log_n):
+        return st.Air(width=3, log_n=log_n, constraint_degree=2,
+                      num_transitions=3,
+                      eval_transitions=golden.fib_mul_transitions,
+                      boundary=golden.FIB_MUL_BOUNDARY)
+
+    def trace(log_n):
+        return gl.from_int(np.array(golden.fib_mul_trace(log_n),
+                                    dtype=object), dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    # -- stark_golden -------------------------------------------------------
+    g_log_n = golden.STARK_GOLDEN_LOG_N
+    gcfg = st.StarkConfig(**golden.STARK_GOLDEN_CONFIG)
+    gproof, golden_s = timed(lambda: st.prove(air(g_log_n), trace(g_log_n),
+                                              gcfg, device=dev))
+    with open(os.path.join(GOLDEN_DIR,
+                           f"stark_fib_log{g_log_n}_proof.json")) as f:
+        if json.loads(json.dumps(serde.proof_to_json(gproof))) != json.load(f):
+            raise SystemExit("stark_golden: proof differs from the golden "
+                             "JSON")
+    if not st.verify(air(g_log_n), gproof, gcfg, device=dev, strict=True):
+        raise SystemExit("stark_golden: proof does not verify")
+    phase("stark_golden", log_n=g_log_n, config=golden.STARK_GOLDEN_CONFIG,
+          proof_equal=True, verify=True, seconds=round(golden_s, 3))
+
+    # -- stark: 2^20 rows ---------------------------------------------------
+    log_n = 20
+    cfg = st.StarkConfig()
+    big_air = air(log_n)
+    tr, trace_s = timed(lambda: trace(log_n))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracing.GLOBAL.enabled = True
+    tracing.GLOBAL.sync = torch.cuda.synchronize
+    tracing.GLOBAL.spans.clear()
+    ck.reset_launches()
+    proof, prove_s = timed(lambda: st.prove(big_air, tr, cfg, device=dev))
+    ok, verify_s = timed(lambda: st.verify(big_air, proof, cfg, device=dev,
+                                           strict=True))
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stages = {k: round(v, 4) for k, v in
+              tracing.GLOBAL.flat_durations().items() if k.startswith("stark")}
+    tracing.GLOBAL.enabled = False
+    if not ok:
+        raise SystemExit("stark: proof does not verify")
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches[name] <= 0:
+            raise SystemExit(f"stark launched {name} no time")
+    n, lde, shift = 1 << log_n, cfg.lde_factor, gl.MULTIPLICATIVE_GENERATOR
+    _, zh_device_s = timed(lambda: st._zh_over_last_inv(n, lde, shift, dev))
+
+    def zh_host():
+        # the JAX package's form: the (x_i - w^{N-1}) vector from host ints
+        n_lde = n * lde
+        v = gl.primitive_root_of_unity(n_lde.bit_length() - 1)
+        w_last = pow(gl.primitive_root_of_unity(log_n), n - 1, P)
+        xs = gl.powers_host(v, n_lde).astype(object)
+        return gl.from_int((xs * shift - w_last) % P, dev)
+
+    xml_host, zh_host_s = timed(zh_host)
+    if not torch.equal(xml_host, st._zh_over_last_inv(n, lde, shift, dev)[1]):
+        raise SystemExit("stark: the device form of (x - w^{N-1}) differs "
+                         "from the host ints")
+    del xml_host
+
+    def refused(mutate):
+        bad = copy.deepcopy(proof)
+        mutate(bad)
+        return not st.verify(big_air, bad, cfg, device=dev)
+
+    def bump_ood(p):
+        p.ood_trace[0] = ((p.ood_trace[0][0] + 1) % P, p.ood_trace[0][1])
+
+    def bump_opening(p):
+        k = sorted(p.trace_openings)[0]
+        p.trace_openings[k] = [(p.trace_openings[k][0] + 1) % P] + \
+            list(p.trace_openings[k][1:])
+
+    bad_trace = tr.clone()
+    bad_trace[2, n // 2] ^= 1
+    bad_proof = st.prove(big_air, bad_trace, cfg, device=dev)
+    del bad_trace
+    rejected = {"ood": refused(bump_ood), "opening": refused(bump_opening),
+                "wrong_trace": not st.verify(big_air, bad_proof, cfg,
+                                             device=dev)}
+    if not all(rejected.values()):
+        raise SystemExit(f"stark: a tampered proof was accepted: {rejected}")
+    del tr, bad_proof
+    torch.cuda.empty_cache()
+    phase("stark", log_n=log_n, width=3, config=dataclasses.asdict(cfg),
+          trace_s=round(trace_s, 3), prove_s=round(prove_s, 3),
+          verify_s=round(verify_s, 3), verify=True,
+          zh_over_last_inv_device_s=round(zh_device_s, 4),
+          zh_over_last_inv_host_s=round(zh_host_s, 4), stages_s=stages,
+          tampered_rejected=rejected, max_memory_allocated=peak,
+          launches=launches)
+    return launches
+
+
+def gadgets_golden_phase(dev, phase):
+    """Phase `gadgets_golden`: the five gadget circuits (GF(p^2) squaring
+    chain, inverse cells, FRI fold check, in-circuit transcript, Merkle
+    path) made and proved on the card at the JAX tests' shapes: each VK and
+    proof equals test_artifacts/gadget_*_{vk,proof}.json."""
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import serde
+
+    t0 = time.time()
+    names = []
+    for name, ir, setup, witness, cfg in golden.gadget_circuits(dev):
+        proof = pk.prove(ir, setup, witness, cfg, device=dev)
+        with open(os.path.join(GOLDEN_DIR, f"gadget_{name}_vk.json")) as f:
+            if setup.vk() != [int(v) for v in json.load(f)]:
+                raise SystemExit(f"gadgets_golden: the {name} VK differs")
+        with open(os.path.join(GOLDEN_DIR, f"gadget_{name}_proof.json")) as f:
+            if json.loads(json.dumps(serde.proof_to_json(proof))) != \
+                    json.load(f):
+                raise SystemExit(f"gadgets_golden: the {name} proof differs")
+        if not pk.verify(ir, setup.vk(), proof, cfg, device=dev, strict=True):
+            raise SystemExit(f"gadgets_golden: the {name} proof does not "
+                             "verify")
+        names.append(name)
+    phase("gadgets_golden", circuits=names, vk_equal=True, proof_equal=True,
+          verify=True, seconds=round(time.time() - t0, 3))
+
+
+def ref_serde_phase(dev, phase, ir, setup, proof, cfg):
+    """Phase `ref_serde`: the main path's flagship proof (MainVM-shaped,
+    exported as type 1) through the reference's JSON dialect and back
+    verifies unchanged; the proof and VK documents hold the reference's key
+    sets; a tampered document is refused."""
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import ref_serde as ref
+
+    t0 = time.time()
+    doc = json.loads(json.dumps(ref.proof_to_reference_json(1, proof, cfg)))
+    body = doc["MainVM"]
+    extras = set(body) - REFERENCE_PROOF_KEYS
+    if not REFERENCE_PROOF_KEYS <= set(body) or not extras <= {
+            "lookup_oracle_cap", "values_at_z_layout", "query_positions"}:
+        raise SystemExit("ref_serde: the proof document's keys differ from "
+                         "the reference's")
+    vk_doc = ref.vk_to_reference_json(1, ir, setup, cfg)["MainVM"]
+    if set(vk_doc) != REFERENCE_VK_KEYS or \
+            set(vk_doc["fixed_parameters"]) != REFERENCE_FIXED_KEYS:
+        raise SystemExit("ref_serde: the VK document's keys differ from the "
+                         "reference's")
+    ctype, back = ref.reference_json_to_proof(doc)
+    if ctype != 1 or not pk.verify(ir, setup.vk(), back, cfg, device=dev,
+                                   strict=True):
+        raise SystemExit("ref_serde: the round-tripped proof does not verify")
+    body["public_inputs"][0] = (body["public_inputs"][0] + 1) % GOLDILOCKS_P
+    if pk.verify(ir, setup.vk(), ref.reference_json_to_proof(doc)[1], cfg,
+                 device=dev):
+        raise SystemExit("ref_serde: a tampered document verified")
+    phase("ref_serde", circuit="flagship as MainVM", verify=True,
+          tampered_rejected=True, document_bytes=len(json.dumps(doc)),
+          extension_keys=sorted(extras), seconds=round(time.time() - t0, 3))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-n", type=int, default=19,
@@ -2069,6 +2450,8 @@ def main(argv=None) -> int:
           max_memory_allocated=torch.cuda.max_memory_allocated(),
           tampered_rejected=rejected, launches=launches, stages_s=stages,
           stages_warm_s=stages_warm)
+
+    main_proof = proof  # later phases reuse the name `proof`
 
     # -- 6. the other two prover paths at the golden shape --------------------
     gwit = fl.flagship_witness(gir, seed=42, device=dev)
@@ -2650,15 +3033,16 @@ def main(argv=None) -> int:
                    "gate_degree": sd.ir.gate_degree,
                    "lookup_sets": len(sd.ir.lookup_sets),
                    "instances": len(insts), "vk_sha256": vk_digest(sd.vk)}
-            vk_path = os.path.join(PROD_VK_DIR, f"vk_{ctype}.json")
-            if ctype != 5:  # the JAX package committed no VK of type 5
-                with open(vk_path) as f:
-                    if sd.vk != [int(v) for v in json.load(f)]:
-                        raise SystemExit(
-                            f"hashes: the production VK of type {ctype} "
-                            f"differs from setup/setup/base_layer/"
-                            f"vk_{ctype}.json")
-                rec["vk_equal"] = True
+            # type 5's from tools/gen_cli_golden.py, the others under setup/
+            vk_path = (os.path.join(GOLDEN_DIR, "vk_5_production.json")
+                       if ctype == 5 else
+                       os.path.join(PROD_VK_DIR, f"vk_{ctype}.json"))
+            with open(vk_path) as f:
+                if sd.vk != [int(v) for v in json.load(f)]:
+                    raise SystemExit(
+                        f"hashes: the production VK of type {ctype} "
+                        f"differs from {os.path.relpath(vk_path, REPO_DIR)}")
+            rec["vk_equal"] = True
             proves, verifies, fills = [], [], []
             # the first of the four code-decommitter instances only (the
             # same circuit, 12 s of the script): all four are decomposed
@@ -2808,6 +3192,17 @@ def main(argv=None) -> int:
     tower_paths, timing_tower, timing_wrap, timing_fw = tower_phases(
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
+    # -- 24-29. the CLI, the AIR STARK engine, the gadgets, the reference ----
+    # dialect of the main path's proof
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_cli_golden, launches_cli = cli_phases(args, phase, tmp)
+    launches_stark = stark_phases(dev, phase)
+    gadgets_golden_phase(dev, phase)
+    ref_serde_phase(dev, phase, ir, setup, main_proof, cfg)
+    new_paths = {"cli_golden": launches_cli_golden, "cli": launches_cli,
+                 "stark": launches_stark}
+
     # -- optional: device busy share of one more prove -----------------------
     if args.profile:
         witness = fl.flagship_witness(ir, seed=0, device=dev)
@@ -2842,7 +3237,7 @@ def main(argv=None) -> int:
     # -- optional: broadcasts addressed in the kernel against materialised ----
     if args.compare_broadcast:
         witness = fl.flagship_witness(ir, seed=0, device=dev)
-        want = serde.proof_to_json(proof)
+        want = serde.proof_to_json(main_proof)
         in_kernel = ck._operand
 
         def materialise_all(t, shape, n):
@@ -2911,7 +3306,8 @@ def main(argv=None) -> int:
                    "sorters": launches_srt[name],
                    "hashes": launches_hash[name],
                    "block": launches_block[name],
-                   **{p: tower_paths[p][name] for p in tower_paths}}
+                   **{p: tower_paths[p][name] for p in tower_paths},
+                   **{p: c.get(name, 0) for p, c in new_paths.items()}}
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(by_path.values()),
@@ -2951,7 +3347,8 @@ def main(argv=None) -> int:
         # for-wrapper tree's shape, the plain version's time at the check
         # shape (exact Python ints)
         t = timing_fw[name]
-        by_path = {p: tower_paths[p][name] for p in tower_paths}
+        by_path = {**{p: tower_paths[p][name] for p in tower_paths},
+                   **{p: c.get(name, 0) for p, c in new_paths.items()}}
         return {"name": name, "route": "cuda",
                 "source": "zkevm_harness_tpu_torch/csrc/poseidon2_bn254.cu",
                 "replaces": replaces, "tpu_kernel": None,

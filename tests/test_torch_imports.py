@@ -86,7 +86,12 @@ def test_every_module_imports_without_jax():
                      "witness.eip4844", "circuits.eip4844_circuit",
                      "full_chain", "utils.poseidon2_bn254",
                      "prover.hash_backend", "utils.plonk_builder",
-                     "utils.snark_fri_verifier"):
+                     "utils.snark_fri_verifier", "__main__",
+                     "circuits.capacity", "circuits.ext_gadget",
+                     "circuits.transcript_gadget", "circuits.merkle_circuit",
+                     "circuits.fri_fold_circuit", "utils.ref_serde",
+                     "utils.sequencer_api", "utils.test_artifacts",
+                     "utils.kernel_bench"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 
@@ -128,6 +133,57 @@ def test_default_device_entry_points_raise_without_cuda():
         pk.prove(ir, setup, witness, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         pk.verify(ir, setup.vk(), None, cfg)
+
+
+def test_cli_without_device_fails_without_cuda(tmp_path):
+    """`python -m zkevm_harness_tpu_torch prove` with no --device on a
+    machine without a card exits non-zero and writes no proof."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = tmp_path / "proof.json"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-m", "zkevm_harness_tpu_torch",
+                          "prove", "--log-n", "6", "--width", "8",
+                          "--out", str(out)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr
+    assert not out.exists()
+
+
+def test_stark_and_gadget_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import ext_gadget as eg
+    from zkevm_harness_tpu_torch.circuits import fri_fold_circuit as fc
+    from zkevm_harness_tpu_torch.circuits import merkle_circuit as mc
+    from zkevm_harness_tpu_torch.circuits import transcript_gadget as tg
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.prover import stark as st
+    from zkevm_harness_tpu_torch.utils import kernel_bench, sequencer_api
+
+    air = st.Air(3, 6, 2, 3, golden.fib_mul_transitions,
+                 golden.FIB_MUL_BOUNDARY)
+    trace = gl.from_int(np.array(golden.fib_mul_trace(6), dtype=object),
+                        "cpu")
+    cfg = pk.PlonkishConfig(**golden.GADGET_CONFIG)
+    ir = eg.ext_chain_ir(4)
+    for call in (lambda: st.prove(air, trace),
+                 lambda: st.verify(air, None),
+                 lambda: st._zh_over_last_inv(64, 4, 7),
+                 lambda: eg.ext_chain_setup(ir, cfg),
+                 lambda: eg.ext_chain_witness(ir, (1, 2)),
+                 lambda: eg.inverse_witness(eg.inverse_ir(5), [3]),
+                 lambda: fc.fold_witness(fc.fold_ir(5), []),
+                 lambda: tg.transcript_witness(tg.transcript_ir(6, [0]), []),
+                 lambda: tg.expected_challenges([[0] * 8], [0]),
+                 lambda: mc.merkle_setup(mc.merkle_ir(6), cfg),
+                 lambda: sequencer_api.events_queue_commitment([]),
+                 lambda: kernel_bench.bench_kernels()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_main_vm_entry_points_raise_without_cuda():

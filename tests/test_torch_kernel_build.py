@@ -91,8 +91,11 @@ def _chip_smoke():
 
 
 def test_k3_work_bound_counts_the_algorithms_multiplies():
-    cs = _chip_smoke()
+    # the bound's constants live in utils/kernel_bench.py, which
+    # chip_smoke.py and the CLI's bench-kernels share
+    from zkevm_harness_tpu_torch.utils import kernel_bench as cs
     from zkevm_harness_tpu_torch.utils import poseidon2_bn254 as p2b
+    assert _chip_smoke().bn254_bound_ms is cs.bn254_bound_ms
     params = p2b.get_params_bn254()
     assert (cs.BN254_MUL_INSNS, cs.BN254_SQR_INSNS,
             cs.BN254_REDC_INSNS) == (264, 208, 136)

@@ -2,7 +2,9 @@
 
 The JAX package stores a field element as a (lo, hi) pair of uint32 planes;
 the port stores one int64 holding the u64 bit pattern. This module converts
-field arrays, a `PlonkishSetup` and a `PlonkishProof` in both directions, and
+field arrays (an AIR's execution trace among them: `tensor_from_pairs`,
+`pairs_from_tensor`), a `PlonkishSetup`, and a `PlonkishProof` or a
+`StarkProof` (through the shared JSON) in both directions, and
 a BN254 PLONK proof and VK and the EIP-4844 witness chain to and from JSON.
 MainVM instances, artifacts and a tracer's queries, and the instance payloads
 of the hash and storage-application circuits, are plain Python ints (or

@@ -30,6 +30,11 @@ The recursion tower (`harness.run_block(tower=True)`) of the small block of
 node and scheduler) is behind `test_artifacts/tower_golden_*.json`, and
 the dry block flow of `harness_block` behind
 `test_artifacts/harness_dry_summary.json` (`tools/gen_tower_golden.py`).
+
+The fib-mul AIR of the STARK engine and the stand-alone gadget circuits
+(`gadget_circuits`), with fixed inputs, are behind
+`test_artifacts/stark_fib_log6_proof.json` and
+`test_artifacts/gadget_*_{vk,proof}.json` (`tools/gen_cli_golden.py`).
 """
 
 from __future__ import annotations
@@ -37,7 +42,16 @@ from __future__ import annotations
 import hashlib
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
+
+from .circuits import ext_gadget as _eg
+from .circuits import fri_fold_circuit as _fc
+from .circuits import merkle_circuit as _mc
+from .circuits import transcript_gadget as _tg
 from .circuits.types import testing_geometry
+from .ops import goldilocks as _gl
+from .ops import merkle as _mk
+from .prover import plonkish as _pk
 from .utils import secp256k1 as _ec
 from .vm import isa as _isa
 from .vm.environment import (DefaultPrecompilesProcessor, InMemoryEventSink,
@@ -359,3 +373,103 @@ def trace_hash_block(rounds: int, call_every: int = 8,
     prog = hash_block(_isa, rounds, call_every, callee_reps)
     return trace_program(prog, 8 * len(prog) + 64,
                          hash_callees(_isa, callee_reps))
+
+
+# -- the AIR STARK engine and the gadget circuits, at the shapes of the JAX
+# package's tests of them -----------------------------------------------------
+
+# StarkConfig of the golden STARK proof and the rows of its trace
+STARK_GOLDEN_CONFIG = dict(lde_factor=4, cap_size=4, num_queries=10,
+                           final_fri_size=16)
+STARK_GOLDEN_LOG_N = 6
+# (row, column, value) assertions of the fib-mul AIR
+FIB_MUL_BOUNDARY = ((0, 0, 1), (0, 1, 1), (0, 2, 1))
+
+
+def fib_mul_transitions(alg, row, nxt):
+    """Width 3: a' = b, b' = a + b, c' = c * b (degree 2), against either
+    algebra of `prover/stark.py`."""
+    a, b, c = row
+    an, bn, cn = nxt
+    return [alg.sub(an, b), alg.sub(bn, alg.add(a, b)),
+            alg.sub(cn, alg.mul(c, b))]
+
+
+def fib_mul_trace(log_n: int) -> List[List[int]]:
+    """The fib-mul trace as three columns of Python ints."""
+    p = (1 << 64) - (1 << 32) + 1
+    a = b = c = 1
+    cols = [[], [], []]
+    for _ in range(1 << log_n):
+        for col, v in zip(cols, (a, b, c)):
+            col.append(v)
+        a, b, c = b, (a + b) % p, (c * b) % p
+    return cols
+
+
+def fixed_words(tag: str, count: int) -> List[int]:
+    """`count` fixed field values in [1, 2^62), from SHA-256 of the tag
+    and the index (the same on every machine, whatever its numpy)."""
+    return [int.from_bytes(hashlib.sha256(f"{tag}/{i}".encode()).digest()[:8],
+                           "big") % ((1 << 62) - 1) + 1 for i in range(count)]
+
+
+def _pairs(tag: str, count: int) -> List[Tuple[int, int]]:
+    w = fixed_words(tag, 2 * count)
+    return [(w[2 * i], w[2 * i + 1]) for i in range(count)]
+
+
+# PlonkishConfigs of the gadget tests (final FRI size 8, or 16)
+GADGET_CONFIG = dict(rate=2, cap_size=4, num_queries=8, final_fri_size=8)
+GADGET_CONFIG_16 = dict(rate=2, cap_size=4, num_queries=8, final_fri_size=16)
+EXT_CHAIN_LOG_N = 4
+EXT_CHAIN_BASE = _pairs("ext_chain", 1)[0]
+INVERSE_LOG_N = 5
+INVERSE_XS = tuple(fixed_words("inverse", 8))
+FRI_FOLD_LOG_N = 5
+FRI_FOLD_ROWS = tuple((a, b, al, d) for (a, b, al), d in zip(
+    zip(_pairs("fold_a", 10), _pairs("fold_b", 10), _pairs("fold_alpha", 10)),
+    fixed_words("fold_d", 10)))
+TRANSCRIPT_LOG_N = 6
+TRANSCRIPT_BLOCKS = (0, 1)
+TRANSCRIPT_CHUNKS = tuple(tuple(fixed_words(f"transcript_{k}", 8))
+                          for k in range(2))
+MERKLE_LOG_N = 6
+MERKLE_LEAVES = tuple(tuple(fixed_words(f"merkle_leaf_{i}", 4))
+                      for i in range(4))
+MERKLE_INDEX = 2
+
+
+def gadget_circuits(device=None):
+    """The five golden gadget circuits of the port, each as (name, ir,
+    setup, witness, PlonkishConfig) on `device` (`None` means the CUDA card):
+    the names of test_artifacts/gadget_{name}_{vk,proof}.json."""
+    cfg8 = _pk.PlonkishConfig(**GADGET_CONFIG)
+    cfg16 = _pk.PlonkishConfig(**GADGET_CONFIG_16)
+    out = []
+    ir = _eg.ext_chain_ir(EXT_CHAIN_LOG_N)
+    out.append(("ext_chain", ir, _eg.ext_chain_setup(ir, cfg8, device),
+                _eg.ext_chain_witness(ir, EXT_CHAIN_BASE, device), cfg8))
+    ir = _eg.inverse_ir(INVERSE_LOG_N)
+    out.append(("inverse", ir,
+                _eg.inverse_setup(ir, cfg8, len(INVERSE_XS), device),
+                _eg.inverse_witness(ir, INVERSE_XS, device), cfg8))
+    ir = _fc.fold_ir(FRI_FOLD_LOG_N)
+    out.append(("fri_fold", ir,
+                _fc.fold_setup(ir, [r[3] for r in FRI_FOLD_ROWS], cfg8,
+                               device),
+                _fc.fold_witness(ir, FRI_FOLD_ROWS, device)[0], cfg8))
+    ir = _tg.transcript_ir(TRANSCRIPT_LOG_N, TRANSCRIPT_BLOCKS)
+    out.append(("transcript", ir, _tg.transcript_setup(ir, cfg16, device),
+                _tg.transcript_witness(ir, TRANSCRIPT_CHUNKS, device), cfg16))
+    leaves = _gl.from_int(np.array(MERKLE_LEAVES, dtype=object), device)
+    path = _gl.to_u64(_mk.open_indices(_mk.build_tree(leaves, 1), np.array(
+        [MERKLE_INDEX], np.uint32)))[0]
+    ir = _mc.merkle_ir(MERKLE_LOG_N)
+    witness, _root = _mc.merkle_witness(
+        ir, list(MERKLE_LEAVES[MERKLE_INDEX]),
+        [[int(v) for v in lvl] for lvl in path],
+        [(MERKLE_INDEX >> d) & 1 for d in range(path.shape[0])], device)
+    out.append(("merkle", ir, _mc.merkle_setup(ir, cfg16, device), witness,
+                cfg16))
+    return out

@@ -30,8 +30,10 @@ BN254 Fr digest is four int64 limbs, little-endian 64-bit words.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
+import json
 import os
 import re
 import shutil
@@ -67,6 +69,18 @@ LAUNCHES: Dict[str, int] = {"gl_mul": 0, "poseidon2_permute": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _dump_launches(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(LAUNCHES, f)
+
+
+# A process started with ZKEVM_LAUNCHES_FILE set writes its launch counts
+# there as JSON when it exits (a CLI command's counts for the run that
+# started it)
+if os.environ.get("ZKEVM_LAUNCHES_FILE"):
+    atexit.register(_dump_launches, os.environ["ZKEVM_LAUNCHES_FILE"])
 
 
 # ---------------------------------------------------------------------------

@@ -288,6 +288,16 @@ def wire_copy_pairs(n: int, a: np.ndarray, b: np.ndarray) -> CopyWiring:
     return CopyWiring(ids[moved], succ[moved])
 
 
+def wire_copy_cycles(n: int, cycles) -> CopyWiring:
+    """The JAX package's `apply_copy_cycles` on the identity for short
+    cycles of (col, row) cells, each cycle [c0, c1, c2, ...] taken as its
+    linked pairs (c0, c1), (c1, c2), ... (`wire_copy_pairs`)."""
+    pairs = [(c[i], c[i + 1]) for c in cycles for i in range(len(c) - 1)]
+    a = np.array([p[0] for p in pairs], dtype=np.int64).reshape(-1, 2)
+    b = np.array([p[1] for p in pairs], dtype=np.int64).reshape(-1, 2)
+    return wire_copy_pairs(n, a, b)
+
+
 # ---------------------------------------------------------------------------
 # Helpers
 # ---------------------------------------------------------------------------

@@ -12,6 +12,12 @@ and an in-memory implementation (in_memory_data_source.rs:20-45).
 This doubles as the checkpoint/resume system: every pipeline stage guards with
 `if source.get_X() is None: compute; set_X` exactly like the reference
 (complex_tests/mod.rs:323-331).
+
+The JSON files hold a record's proofs in `utils/serde`'s form, and reading a
+file decodes them again, so a record written by one run is resumed by the
+next. (The JAX package's file store hands its records to `json.dump` as they
+are, which refuses a proof object: its CLI `prove-block` stops at the first
+proof it stores.)
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Dict, Optional, Tuple
+
+from . import serde
 
 
 class InMemoryDataSource:
@@ -156,10 +164,11 @@ class LocalFileDataSource(InMemoryDataSource):
         if not os.path.exists(path):
             return None
         with open(path) as f:
-            return json.load(f)
+            return serde.proof_from_json(json.load(f),
+                                         serde.default_registry())
 
     def set(self, value, *key):
         path = self._path(key)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "w") as f:
-            json.dump(value, f)
+            json.dump(value, f, default=serde.proof_to_json)

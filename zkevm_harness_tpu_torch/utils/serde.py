@@ -80,6 +80,7 @@ def proof_from_json(data: Any, registry: dict) -> Any:
 def default_registry() -> dict:
     from ..prover.fri import FriLayerOpening, FriProof
     from ..prover.plonkish import PlonkishProof
+    from ..prover.stark import StarkProof
 
     return {c.__name__: c for c in
-            (FriProof, FriLayerOpening, PlonkishProof)}
+            (FriProof, FriLayerOpening, PlonkishProof, StarkProof)}
