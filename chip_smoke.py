@@ -12,7 +12,9 @@
                                      # and the "binding" SNARK, then mode
                                      # 1 at LDE 32 and the "pi" SNARK;
                                      # the CLI, the AIR STARK engine, the
-                                     # gadget circuits
+                                     # gadget circuits; the column-sharded
+                                     # prove and the distributed NTT in
+                                     # ranks of torch.distributed
     python3 chip_smoke.py --log-n 16 # flagship with fewer rows (same width)
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -189,7 +191,29 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                VKs and proofs equal test_artifacts/gadget_*
   28. ref_serde  the main path's flagship proof through the reference's
                JSON dialect and back verifies; key sets as the reference's
-  29. kernels  one line {"kernels": [...], "helpers": [...]}; K3's entries
+  29. mesh_golden  proving across cards (parallel/), 4 ranks of
+               parallel.mesh.run_on_mesh (gloo with every rank on card 0
+               where the machine has fewer cards than ranks, nccl with a
+               card a rank where it has enough): the five sharded helpers
+               at tests/test_mesh.py's shapes equal the one-rank functions,
+               distributed_ntt at (3, 1024) equals ntt, and
+               prove_column_sharded of the flagship at log_n 6, width 16
+               equals test_artifacts/mesh_log6_w16_proof.json and verifies
+  30. mesh_dryrun  the JAX package's multi-chip dry run at D = 4 (in the
+               same spawn): sharded commit step (width 8, 128 rows),
+               distributed NTT (2, 256), prove_column_sharded of the
+               flagship 2^9 x 64 (rate 2, cap 8, 8 queries, final 16) equal
+               to test_artifacts/mesh_log9_w64_proof.json, verified, caps
+               and query positions equal to a one-rank prove's; both times
+  31. mesh     prove_column_sharded of the main path's flagship (130 x
+               2^log_n, its config) over 2 ranks, twice, equal to phase
+               main_path's proof byte for byte, verified, a tampered public
+               input refused; distributed_ntt of (130, 2^20) over 4 ranks
+               equal to ntt. Each of 29-31 prints backend, ranks and cards,
+               the collective bytes a rank sent per prover phase, per-rank
+               seconds and peak memory, and the launches of the sharded
+               work (path `mesh` of the kernels line)
+  32. kernels  one line {"kernels": [...], "helpers": [...]}; K3's entries
                replace no TPU kernel (`replaces` names the JAX package's
                host Python hash they take over, `tpu_kernel` is null)
 
@@ -2023,6 +2047,373 @@ def ref_serde_phase(dev, phase, ir, setup, proof, cfg):
           extension_keys=sorted(extras), seconds=round(time.time() - t0, 3))
 
 
+# ---------------------------------------------------------------------------
+# Proving across cards: the ranks of parallel.mesh.run_on_mesh
+# ---------------------------------------------------------------------------
+
+MESH_GOLDEN = (6, 16, dict(rate=2, cap_size=4, num_queries=8,
+                           final_fri_size=8))  # tests/test_mesh.py:82-84
+MESH_DRYRUN = (9, 64, dict(rate=2, cap_size=8, num_queries=8,
+                           final_fri_size=16))  # __graft_entry__.py:108-115
+MESH_RANKS = 4  # golden, dry run and distributed NTT: one spawn
+MESH_PROVE_RANKS = 2  # 130 columns: 65 a rank
+MESH_NTT_LOG_N = 20  # the flagship's commitment domain at its 2^19 rows
+
+
+class RankClock:
+    """Inside a rank: each part of the sharded work started together (a
+    barrier), closed after a synchronise; its seconds, its launches and the
+    collective bytes it sent. Work outside `part` (the one-rank comparisons)
+    is counted nowhere."""
+
+    def __init__(self, mesh):
+        from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+        self.mesh, self.ck = mesh, ck
+        self.parts = {}
+
+    def part(self, name, fn):
+        import torch
+        import torch.distributed as dist
+        from zkevm_harness_tpu_torch.parallel import mesh as pm
+        dev = self.mesh.device
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        pm.reset_sent_bytes()
+        before = dict(self.ck.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        self.parts[name] = {
+            "s": time.perf_counter() - t0,
+            "launches": {k: v - before[k]
+                         for k, v in self.ck.LAUNCHES.items()},
+            "sent": {label: dict(kinds)
+                     for label, kinds in pm.SENT_BYTES.items()}}
+        return out
+
+
+def _mesh_draw(shape, dev):
+    """tests/test_mesh.py's inputs: a fresh default_rng(0) a test."""
+    import numpy as np
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    return gl.from_u64(np.random.default_rng(0).integers(
+        0, 2**63, size=shape, dtype=np.uint64), dev)
+
+
+def _mesh_flagship(mesh, log_n, width, cfg_kw):
+    from zkevm_harness_tpu_torch.circuits import flagship as fl
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    cfg = pk.PlonkishConfig(**cfg_kw)
+    ir = fl.flagship_ir(log_n=log_n, width=width)
+    return (ir, cfg, fl.flagship_setup(ir, cfg, device=mesh.device),
+            fl.flagship_witness(ir, seed=0, device=mesh.device))
+
+
+def mesh_rank_four():
+    """Rank side of phases `mesh_golden`, `mesh_dryrun` and the distributed
+    NTT of phase `mesh`, in one spawn of 4 ranks: each sharded result held
+    against the one-rank function on the same inputs."""
+    import numpy as np
+    import torch
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.ops import merkle as mk
+    from zkevm_harness_tpu_torch.ops import ntt as nt
+    from zkevm_harness_tpu_torch.ops import poseidon2 as p2
+    from zkevm_harness_tpu_torch.parallel import dist_ntt as dn
+    from zkevm_harness_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh()
+    dev = mesh.device
+    # a fresh process's first launches load the libraries and the card's
+    # modules: seconds, kept out of the timed parts
+    t0 = time.perf_counter()
+    p2.permute(gl.mul(gl.ones((1, 12), dev), gl.ones((1, 12), dev)))
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    clock = RankClock(mesh)
+    eq = {}
+
+    def gathered(x, width):
+        return pm.gather_columns(x, mesh, width)
+
+    def domain(x):
+        return pm.all_gather(x, mesh).permute(1, 0, 2).reshape(
+            x.shape[0], -1)
+
+    # -- mesh_golden: the five helpers at tests/test_mesh.py's shapes -------
+    trace = _mesh_draw((16, 64), dev)
+    got = clock.part("golden_lde", lambda: pm.sharded_coset_lde(
+        pm.shard_columns(trace, mesh), 2, mesh))
+    eq["lde"] = torch.equal(gathered(got, 16), nt.coset_lde(trace, 2))
+    evals = _mesh_draw((8, 64), dev)
+    got = clock.part("golden_leaf_hash", lambda: pm.sharded_leaf_hash(
+        pm.shard_columns(evals, mesh), mesh))
+    eq["leaf_hash"] = torch.equal(gathered(got, 64),
+                                  mk.hash_leaves(evals.t()))
+    states = _mesh_draw((16, 12), dev)
+    got = clock.part("golden_poseidon", lambda:
+                     pm.sharded_poseidon_throughput_step(
+                         pm.shard_columns(states, mesh), mesh))
+    eq["poseidon"] = torch.equal(gathered(got, 16), p2.permute(states))
+    vals = _mesh_draw((3, 1024), dev)
+    got = clock.part("golden_ntt", lambda: dn.distributed_ntt(
+        dn.shard_domain(vals, mesh), mesh))
+    eq["distributed_ntt"] = torch.equal(domain(got), nt.ntt(vals))
+    cols = _mesh_draw((16, 64), dev)
+    lde, digests, _levels, cap = clock.part(
+        "golden_commit", lambda: pm.sharded_commit(
+            pm.shard_columns(cols, mesh), 2, 8, mesh))
+    want_lde = nt.coset_lde(cols, 2)
+    want = mk.build_tree(mk.hash_leaves(want_lde.t()), 8)
+    eq["commit"] = (torch.equal(gathered(lde, 16), want_lde)
+                    and torch.equal(gathered(digests, 128), want.levels[0])
+                    and torch.equal(cap, want.cap))
+    ir, cfg, setup, witness = _mesh_flagship(mesh, *MESH_GOLDEN)
+    golden_proof = clock.part("golden_prove", lambda: pm.prove_column_sharded(
+        ir, setup, witness, cfg, mesh))
+
+    # -- mesh_dryrun: __graft_entry__.dryrun_multichip's steps at D = 4 -----
+    d = mesh.size
+    rng = np.random.default_rng(0)
+    trace = gl.from_u64(rng.integers(0, 2**63, size=(2 * d, 32 * d),
+                                     dtype=np.uint64), dev)
+    digests = clock.part("dryrun_commit_step", lambda: pm.sharded_leaf_hash(
+        pm.sharded_coset_lde(pm.shard_columns(trace, mesh), 2, mesh), mesh))
+    eq["dryrun_commit_step"] = torch.equal(
+        gathered(digests, 64 * d), mk.hash_leaves(nt.coset_lde(trace, 2).t()))
+    poly = gl.from_u64(rng.integers(0, 2**63, size=(2, max(256, 4 * d * d)),
+                                    dtype=np.uint64), dev)
+    got = clock.part("dryrun_distributed_ntt", lambda: dn.distributed_ntt(
+        dn.shard_domain(poly, mesh), mesh))
+    eq["dryrun_distributed_ntt"] = torch.equal(domain(got), nt.ntt(poly))
+    ir, cfg, setup, witness = _mesh_flagship(mesh, *MESH_DRYRUN)
+    dryrun_proof = clock.part("dryrun_prove", lambda: pm.prove_column_sharded(
+        ir, setup, witness, cfg, mesh))
+    del ir, cfg, setup, witness
+
+    small_peak = torch.cuda.max_memory_allocated(dev)
+
+    # -- mesh: the distributed NTT of (130, 2^20) ---------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    big = torch.randint(0, 2**63 - 1, (WIDTH, 1 << MESH_NTT_LOG_N),
+                        generator=gen, device=dev)  # every value < p
+    mine = dn.shard_domain(big, mesh).contiguous()
+    for label in ("ntt_first", "ntt_warm"):
+        got = clock.part(label, lambda: dn.distributed_ntt(mine, mesh))
+    ntt_peak = torch.cuda.max_memory_allocated(dev)
+    del mine
+    blk = got.shape[1]
+    eq["distributed_ntt_130"] = torch.equal(
+        got, nt.ntt(big)[:, mesh.rank * blk:(mesh.rank + 1) * blk])
+    return {"rank": mesh.rank, "backend": mesh.backend, "equal": eq,
+            "load_s": load_s,
+            "golden_proof": golden_proof, "dryrun_proof": dryrun_proof,
+            "parts": clock.parts, "max_memory_allocated": small_peak,
+            "ntt_max_memory_allocated": ntt_peak}
+
+
+def mesh_rank_prove(log_n):
+    """Rank side of phase `mesh`'s column-sharded prove of the main path's
+    flagship (WIDTH x 2^log_n under its config), twice."""
+    import torch
+    from zkevm_harness_tpu_torch.parallel import mesh as pm
+    mesh = pm.make_mesh()
+    clock = RankClock(mesh)
+    ir, cfg, setup, witness = _mesh_flagship(
+        mesh, log_n, WIDTH, dict(rate=2, cap_size=16, num_queries=40,
+                                 final_fri_size=512))
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    proofs = [clock.part(label, lambda: pm.prove_column_sharded(
+        ir, setup, witness, cfg, mesh)) for label in ("first", "warm")]
+    return {"rank": mesh.rank, "backend": mesh.backend, "proofs": proofs,
+            "parts": clock.parts,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(
+                mesh.device)}
+
+
+def mesh_phases(args, dev, phase, main_ir, main_vk, main_cfg, main_proof):
+    """Phases `mesh_golden`, `mesh_dryrun` and `mesh`: the column-sharded
+    prove and the distributed NTT in ranks of `run_on_mesh` (gloo with every
+    rank on this card where the machine has fewer cards than ranks, nccl
+    with a card a rank where it has enough). Returns the launches of the
+    sharded work, every rank's summed."""
+    import numpy as np
+    import torch
+    from zkevm_harness_tpu_torch.circuits import flagship as fl
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import ntt as nt
+    from zkevm_harness_tpu_torch.parallel import mesh as pm
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import serde
+
+    cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+
+    def summed(results, labels):
+        out = {k: 0 for k in ck.LAUNCHES}
+        for r in results:
+            for label in labels:
+                for k, v in r["parts"][label]["launches"].items():
+                    out[k] += v
+        return out
+
+    def per_rank(results, labels, what="s"):
+        return [{label: (round(r["parts"][label]["s"], 4) if what == "s"
+                         else r["parts"][label]["sent"])
+                 for label in labels} for r in results]
+
+    def same_json(proof, golden_name):
+        with open(os.path.join(GOLDEN_DIR, golden_name)) as f:
+            return json.loads(json.dumps(serde.proof_to_json(proof))) \
+                == json.load(f)
+
+    def check(results, keys):
+        for r in results:
+            bad = [k for k in keys if not r["equal"][k]]
+            if bad:
+                raise SystemExit(f"mesh: rank {r['rank']}: {bad} differ from "
+                                 "the one-rank results")
+
+    t0 = time.time()
+    four = pm.run_on_mesh(mesh_rank_four, MESH_RANKS,
+                          same=lambda r: (
+                              serde.proof_to_json(r["golden_proof"]),
+                              serde.proof_to_json(r["dryrun_proof"])))
+    four_s = time.time() - t0
+    backend4 = four[0]["backend"]
+
+    # -- mesh_golden ---------------------------------------------------------
+    check(four, ("lde", "leaf_hash", "poseidon", "distributed_ntt", "commit"))
+    log_n, width, cfg_kw = MESH_GOLDEN
+    gcfg = pk.PlonkishConfig(**cfg_kw)
+    gir = fl.flagship_ir(log_n=log_n, width=width)
+    gsetup = fl.flagship_setup(gir, gcfg, device=dev)
+    proof = four[0]["golden_proof"]
+    if not same_json(proof, "mesh_log6_w16_proof.json"):
+        raise SystemExit("mesh_golden: the sharded proof differs from "
+                         "test_artifacts/mesh_log6_w16_proof.json")
+    if not pk.verify(gir, gsetup.vk(), proof, gcfg, device=dev, strict=True):
+        raise SystemExit("mesh_golden: the sharded proof does not verify")
+    glabels = ("golden_lde", "golden_leaf_hash", "golden_poseidon",
+               "golden_ntt", "golden_commit", "golden_prove")
+    phase("mesh_golden", backend=backend4, ranks=MESH_RANKS,
+          cards=cards, helpers_equal=True, proof_equal=True, verify=True,
+          shape=f"flagship 2^{log_n} x {width}", config=cfg_kw,
+          spawn_wall_s=round(four_s, 3),
+          rank_load_s=[round(r["load_s"], 4) for r in four],
+          rank_s=per_rank(four, glabels),
+          max_memory_allocated=[r["max_memory_allocated"] for r in four],
+          collective_bytes=per_rank(four, ("golden_prove",), "sent"),
+          launches=summed(four, glabels))
+
+    # -- mesh_dryrun ---------------------------------------------------------
+    check(four, ("dryrun_commit_step", "dryrun_distributed_ntt"))
+    log_n, width, cfg_kw = MESH_DRYRUN
+    dcfg = pk.PlonkishConfig(**cfg_kw)
+    dir_ = fl.flagship_ir(log_n=log_n, width=width)
+    dsetup = fl.flagship_setup(dir_, dcfg, device=dev)
+    proof = four[0]["dryrun_proof"]
+    if not same_json(proof, "mesh_log9_w64_proof.json"):
+        raise SystemExit("mesh_dryrun: the sharded proof differs from "
+                         "test_artifacts/mesh_log9_w64_proof.json")
+    if not pk.verify(dir_, dsetup.vk(), proof, dcfg, device=dev):
+        raise SystemExit("mesh_dryrun: the sharded proof does not verify")
+    dwit = fl.flagship_witness(dir_, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    one = pk.prove(dir_, dsetup, dwit, dcfg, device=dev)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    same_caps = np.array_equal(np.asarray(proof.witness_cap, dtype=object),
+                               np.asarray(one.witness_cap, dtype=object))
+    same_queries = (list(map(int, proof.fri.query_positions))
+                    == list(map(int, one.fri.query_positions)))
+    if not (same_caps and same_queries):
+        raise SystemExit("mesh_dryrun: the sharded proof diverged from the "
+                         "one-rank transcript")
+    dlabels = ("dryrun_commit_step", "dryrun_distributed_ntt", "dryrun_prove")
+    phase("mesh_dryrun", backend=backend4, ranks=MESH_RANKS,
+          cards=cards,
+          steps={"sharded_commit_step": [2 * MESH_RANKS,
+                                         32 * MESH_RANKS],
+                 "distributed_ntt": [2, max(256, 4 * MESH_RANKS ** 2)],
+                 "prove": f"flagship 2^{log_n} x {width}", "config": cfg_kw},
+          steps_equal=True, proof_equal=True, verify=True,
+          same_caps_and_queries=True, rank_s=per_rank(four, dlabels),
+          max_memory_allocated=[r["max_memory_allocated"] for r in four],
+          one_rank_prove_s=round(one_s, 4),
+          caveat="ranks that share one card can never beat one rank"
+          if cards < MESH_RANKS else None,
+          collective_bytes=per_rank(four, ("dryrun_prove",), "sent"),
+          launches=summed(four, dlabels))
+
+    # -- mesh: the main path's flagship over 2 ranks, the NTT over 4 ---------
+    check(four, ("distributed_ntt_130",))
+    t0 = time.time()
+    two = pm.run_on_mesh(mesh_rank_prove, MESH_PROVE_RANKS, args.log_n,
+                         same=lambda r: [serde.proof_to_json(p)
+                                         for p in r["proofs"]])
+    two_s = time.time() - t0
+    want = serde.proof_to_json(main_proof)
+    for p in two[0]["proofs"]:
+        if serde.proof_to_json(p) != want:
+            raise SystemExit("mesh: the sharded proof differs from phase "
+                             "main_path's one-card proof")
+    proof = two[0]["proofs"][0]
+    if not pk.verify(main_ir, main_vk, proof, main_cfg, device=dev,
+                     strict=True):
+        raise SystemExit("mesh: the sharded proof does not verify")
+    bad = copy.deepcopy(proof)
+    bad.public_inputs[0] = (bad.public_inputs[0] + 1) % GOLDILOCKS_P
+    if pk.verify(main_ir, main_vk, bad, main_cfg, device=dev):
+        raise SystemExit("mesh: a tampered public input verified")
+    # the same (130, 2^20) on this card alone, for the record
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    big = torch.randint(0, 2**63 - 1, (WIDTH, 1 << MESH_NTT_LOG_N),
+                        generator=gen, device=dev)
+    one_ntt_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nt.ntt(big)
+        torch.cuda.synchronize()
+        one_ntt_s.append(round(time.perf_counter() - t1, 4))
+    del big
+    plabels = ("first", "warm")
+    nlabels = ("ntt_first", "ntt_warm")
+    phase("mesh", backend=two[0]["backend"], ranks=MESH_PROVE_RANKS,
+          cards=cards, log_n=args.log_n, width=WIDTH,
+          config=dataclasses.asdict(main_cfg), proof_equal_main=True,
+          verify=True, tampered_rejected=True,
+          prove_rank_s=per_rank(two, plabels),
+          spawn_wall_s=round(two_s, 3),
+          max_memory_allocated=[r["max_memory_allocated"] for r in two],
+          collective_bytes=per_rank(two, ("first",), "sent"),
+          launches=summed(two, plabels),
+          distributed_ntt={
+              "backend": backend4, "ranks": MESH_RANKS, "cards": cards,
+              "shape": [WIDTH, 1 << MESH_NTT_LOG_N], "equal_ntt": True,
+              "rank_s": per_rank(four, nlabels),
+              "one_rank_ntt_s": one_ntt_s,
+              "max_memory_allocated": [r["ntt_max_memory_allocated"]
+                                       for r in four],
+              "collective_bytes": per_rank(four, ("ntt_first",), "sent"),
+              "launches": summed(four, nlabels)},
+          caveat="ranks that share one card: no time here is a multi-card "
+                 "speed-up" if cards < MESH_RANKS else None)
+    total = summed(four, glabels + dlabels + nlabels)
+    for k, v in summed(two, plabels).items():
+        total[k] += v
+    for name in ("gl_mul", "poseidon2_permute"):
+        if total[name] <= 0:
+            raise SystemExit(f"mesh path launched {name} no time")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-n", type=int, default=19,
@@ -3200,8 +3591,12 @@ def main(argv=None) -> int:
     launches_stark = stark_phases(dev, phase)
     gadgets_golden_phase(dev, phase)
     ref_serde_phase(dev, phase, ir, setup, main_proof, cfg)
+
+    # -- 29-31. proving across cards: the sharded prove, the distributed NTT
+    launches_mesh = mesh_phases(args, dev, phase, ir, setup.vk(), cfg,
+                                main_proof)
     new_paths = {"cli_golden": launches_cli_golden, "cli": launches_cli,
-                 "stark": launches_stark}
+                 "stark": launches_stark, "mesh": launches_mesh}
 
     # -- optional: device busy share of one more prove -----------------------
     if args.profile:

@@ -91,7 +91,8 @@ def test_every_module_imports_without_jax():
                      "circuits.transcript_gadget", "circuits.merkle_circuit",
                      "circuits.fri_fold_circuit", "utils.ref_serde",
                      "utils.sequencer_api", "utils.test_artifacts",
-                     "utils.kernel_bench"):
+                     "utils.kernel_bench", "parallel.mesh",
+                     "parallel.dist_ntt"):
         assert "zkevm_harness_tpu_torch." + expected in names
 
 

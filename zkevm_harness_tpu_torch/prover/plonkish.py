@@ -31,6 +31,7 @@ Poseidon2 kernel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -41,6 +42,7 @@ from ..ops import goldilocks as gl
 from ..ops import merkle as mk
 from ..ops import ntt as nt
 from ..ops.goldilocks import GF, GF2, P
+from ..parallel import mesh as pm
 from ..utils import field_int as fi
 from ..utils import tracing
 from .fri import FriConfig, fri_prove, fri_verify
@@ -599,6 +601,12 @@ def stratify(ir: PlonkishIR) -> PlonkishIR:
                                gate_part_cols=cols)
 
 
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
 def _roll_next(a: GF) -> GF:
     """Cyclic next-row rotation inside a coset."""
     return torch.roll(a, -1, dims=-1)
@@ -984,14 +992,22 @@ def _ext_interleave(v: GF2) -> GF:
 
 def prove(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
           cfg: PlonkishConfig = PlonkishConfig(), backend=None,
-          backend_setup=None, device=None) -> PlonkishProof:
+          backend_setup=None, device=None, mesh=None) -> PlonkishProof:
     """Prove `witness` (num_witness, n) against `setup`. `device=None` means
     the CUDA card; the witness and the setup must already live there.
 
     `backend`/`backend_setup` switch the Merkle hasher and the transcript to
     another hash backend (prover/hash_backend.Bn254Backend with its
     (vk_fr, setup_tree) pair): the compression-for-wrapper mode
-    (prover_utils.rs:900-967). None keeps the Goldilocks Poseidon2 path."""
+    (prover_utils.rs:900-967). None keeps the Goldilocks Poseidon2 path.
+
+    `mesh` (a `parallel.mesh.Mesh`, inside every rank of `run_on_mesh`)
+    proves column-sharded: the witness and the setup's columns are the
+    rank's shards (`parallel.mesh.prove_column_sharded`), and every rank
+    returns the proof that one rank would."""
+    if mesh is not None and backend is not None:
+        raise NotImplementedError("a column-sharded prove has no hash "
+                                  "backend (the JAX package's has none)")
     device = gl.resolve_device(device)
     for name, t in (("witness", witness), ("setup", setup.sigma_cols)):
         if t.device != device:
@@ -1001,12 +1017,26 @@ def prove(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
                       num_witness=ir.num_witness):
         tracing.count("proofs")
         return _prove_impl(ir, setup, witness, cfg, device, backend,
-                           backend_setup)
+                           backend_setup, mesh)
 
 
 def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
                 cfg: PlonkishConfig, device: torch.device, backend=None,
-                backend_setup=None) -> PlonkishProof:
+                backend_setup=None, mesh=None) -> PlonkishProof:
+    """The prover. With `mesh`, each rank runs it (GSPMD's placement in the
+    JAX package, stated here):
+      - sharded, the LDE-sized work: every commitment's coefficients-to-LDE,
+        leaf hashing and subtree (`mesh.commit_bundle`; a bundle the mesh
+        does not divide is committed whole in every rank), the quotient's
+        cosets (rank c % D evaluates coset c, then `share_cosets`), DEEP
+        (each rank's columns over the whole domain, the partial vectors
+        summed) and the openings (each rank's columns at the query rows,
+        the paths of the queries in its row range, gathered);
+      - replicated, n rows or less: the transcript (every rank absorbs the
+        same caps), stage 2 and 3's columns from the gathered witness, the
+        multiplicities, the setup's coefficients, the quotient's interleave
+        and INTT, the OOD evaluations, FRI on the summed DEEP vector.
+    The sharded prove always streams (`RETAIN_LDE` applies to one rank)."""
     n = 1 << ir.log_n
     rate = cfg.rate
     n_comm = n * rate
@@ -1021,7 +1051,39 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     # commitment-domain LDEs by bundle name: filled at each commit under
     # RETAIN_LDE, left empty by the streamed schedule
     kept_ldes: Dict[str, GF] = {}
-    retain = RETAIN_LDE
+    retain = RETAIN_LDE and mesh is None
+
+    def stage(name: str):
+        """The stage's span; with a mesh, its collectives' label too."""
+        if mesh is None:
+            return tracing.span(name)
+        return _both(tracing.span(name), mesh.labelled(name))
+
+    def mesh_pieces(name: str, width: int):
+        """(lo, hi, split) per column range of a bundle that the mesh
+        shards or replicates on its own (the setup's const, sigma and table
+        columns; any other bundle whole): [lo, hi) are the columns this rank
+        holds of it."""
+        sizes = bundle_sizes[3:] if name == "setup" else (width,)
+        out, a = [], 0
+        for w in sizes:
+            if w:
+                lo, hi = pm.column_range(w, mesh)
+                out.append((a + lo, a + hi, pm.splits(w, mesh)))
+                a += w
+        return out
+
+    def mesh_query_values(name: str, coeffs_b: GF, idx: np.ndarray) -> GF:
+        """(width, q) LDE values of a bundle's columns at the query rows,
+        each rank's from its own columns, gathered."""
+        parts = []
+        for lo, hi, split in mesh_pieces(name, coeffs_b.shape[0]):
+            lde_p = nt.lde_from_coeffs(coeffs_b[lo:hi], n_comm)
+            v = gl.take(lde_p, idx, axis=1)
+            del lde_p
+            parts.append(pm.all_gather(v, mesh).reshape(-1, len(idx))
+                         if split else v)
+        return gl.concatenate(parts, axis=0)
 
     def keep(name: str, lde: GF):
         if retain:
@@ -1039,6 +1101,8 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     def commit(cols: GF = None, coeffs: GF = None):
         """(coefficients, LDE, tree) of a bundle given by its columns or its
         coefficients, hashed by the backend where there is one."""
+        if mesh is not None:
+            return pm.commit_bundle(cols, coeffs, n_comm, cfg.cap_size, mesh)
         if coeffs is None:
             coeffs = nt.intt(cols)
         if backend is None:
@@ -1062,6 +1126,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     else:
         tr = Transcript(device=device)
         tr.absorb_ints(setup.vk())
+    if mesh is not None:
+        with stage("gather_inputs"):
+            witness = pm.gather_columns(witness, mesh, ir.num_witness)
+            setup = pm.gather_setup(setup, mesh, ir)
 
     # public inputs: bound via transcript + composition terms; fetch ONLY
     # the PI cells
@@ -1081,7 +1149,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         return ints, gl.ext_from_ints(ints[0], ints[1], device)
 
     # -- stage 1: witness commitment --------------------------------------
-    with tracing.span("stage1_commit"):
+    with stage("stage1_commit"):
         wit_coeffs, wit_lde, wit_tree = commit(cols=witness)
         keep("witness", wit_lde)
         del wit_lde
@@ -1089,7 +1157,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         _beta, beta_gf = _draw_ext()
 
     # -- stage 2: copy-permutation columns --------------------------------
-    with tracing.span("stage2"):
+    with stage("stage2"):
         _gamma, gamma_gf = _draw_ext()
         w_gen = gl.primitive_root_of_unity(ir.log_n)
         w_pows = gl.powers_dev_cached(w_gen, n, device=device)
@@ -1116,7 +1184,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         del stage2  # evals recomputed from coeffs per coset
 
     # -- stage 2b: lookup helper columns (logup with inverses) ------------
-    with tracing.span("stage3"):
+    with stage("stage3"):
         if has_lk:
             _theta, theta_gf = _draw_ext()
             _beta_lk, beta_lk_gf = _draw_ext()
@@ -1135,7 +1203,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     del witness
 
     # -- stage 3: quotient (coset-streamed over the eval domain) ----------
-    with tracing.span("quotient_cosets"):
+    with stage("quotient_cosets"):
         alpha, _alpha_gf = _draw_ext()
         const_coeffs = nt.intt(setup.const_cols) if ir.num_const else None
         sigma_coeffs = nt.intt(setup.sigma_cols)
@@ -1164,6 +1232,8 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         for c in range(lde_eval):
             if all(c % (lde_eval // D) for D in class_Ds):
                 continue  # no class needs this coset
+            if mesh is not None and c % mesh.size != mesh.rank:
+                continue  # another rank's coset
             s_c = (shift * pow(v, c, P)) % P
             zh_c = (pow(s_c, n, P) - 1) % P
             res = scall(
@@ -1173,8 +1243,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
                 beta_lk_gf, pi_vals)
             for D, val in res.items():
                 acc[D][c // (lde_eval // D)] = val
+        if mesh is not None:
+            pm.share_cosets(acc, class_Ds, lde_eval, n, mesh)
 
-    with tracing.span("quotient_commit"):
+    with stage("quotient_commit"):
         unscales = [gl.powers_dev_cached(pow(shift, P - 2, P), D * n,
                                          device=device) for D in class_Ds]
         q_coeffs = _quotient_coeffs_strat(
@@ -1186,7 +1258,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         absorb_cap(q_tree)
 
     # -- stage 4: OOD evaluations -----------------------------------------
-    with tracing.span("ood"):
+    with stage("ood"):
         z_pt, z_gf = _draw_ext()
         zw_gf = gl.ext_from_ints(*fi.escale(z_pt, w_gen), device)
 
@@ -1210,7 +1282,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
             [ev_dev[k] for k in _absorb_order if ev_dev[k] is not None])))
 
     # -- stage 5: DEEP + FRI ----------------------------------------------
-    with tracing.span("deep"):
+    with stage("deep"):
         gamma_deep, _gd_gf = _draw_ext()
         setup_coeffs_all = gl.concatenate(
             [b for b in (const_coeffs, sigma_coeffs, table_coeffs)
@@ -1237,6 +1309,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         # matches the verifier exactly.
         inv_xz, inv_xzw = _deep_invs(z_gf, zw_gf, xs)
         deep = gl.ext_zeros((n_comm,), device)
+        # with a mesh: the terms of the columns the mesh shards, which the
+        # ranks sum at the end (`deep` takes the replicated ones)
+        deep_sharded = (None if mesh is None
+                        else gl.ext_zeros((n_comm,), device))
         stream = [("witness", wit_coeffs, ev_dev["witness"],
                    ev_dev["witness_next"]),
                   ("stage2", s2_coeffs, ev_dev["stage2"],
@@ -1249,7 +1325,6 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         gp_off = 0
         for name, coeffs_b, ood_z, ood_zw in stream:
             w_b = coeffs_b.shape[0]
-            lde_b = bundle_lde(name, coeffs_b)
             gp_z = gpows[gp_off:gp_off + w_b]
             gp_off += w_b
             if ood_zw is not None:
@@ -1257,14 +1332,32 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
                 gp_off += w_b
             else:
                 gp_zw = None
-            deep = _deep_partial(deep, lde_b, ood_z, ood_zw, gp_z, gp_zw,
-                                 inv_xz, inv_xzw)
-            del lde_b
+            if mesh is None:
+                lde_b = bundle_lde(name, coeffs_b)
+                deep = _deep_partial(deep, lde_b, ood_z, ood_zw, gp_z, gp_zw,
+                                     inv_xz, inv_xzw)
+                del lde_b
+                continue
+            for lo, hi, split in mesh_pieces(name, w_b):
+                lde_p = nt.lde_from_coeffs(coeffs_b[lo:hi], n_comm)
+                part = _deep_partial(
+                    deep_sharded if split else deep, lde_p, ood_z[lo:hi],
+                    None if ood_zw is None else ood_zw[lo:hi],
+                    gp_z[lo:hi], None if gp_zw is None else gp_zw[lo:hi],
+                    inv_xz, inv_xzw)
+                if split:
+                    deep_sharded = part
+                else:
+                    deep = part
+                del lde_p
         assert gp_off == n_deep_terms
         del inv_xz, inv_xzw
+        if mesh is not None:
+            deep = gl.ext_add(deep, pm.sum_over_ranks(deep_sharded, mesh))
+        del deep_sharded
 
     fri_cfg = cfg.fri_config(n_comm)
-    with tracing.span("fri"):
+    with stage("fri"):
         fri_proof = fri_prove(deep, shift, tr, fri_cfg, backend=backend)
     del deep
 
@@ -1277,7 +1370,7 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
                     np.atleast_1d(gl.to_u64(e.c1)))]
 
     # -- stage 6: query openings ------------------------------------------
-    with tracing.span("openings"):
+    with stage("openings"):
         h0 = n_comm // 2
         idx_set = sorted({int(p) % h0 for p in fri_proof.query_positions} |
                          {int(p) % h0 + h0 for p in fri_proof.query_positions})
@@ -1293,10 +1386,16 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         if has_lk:
             all_trees.insert(2, ("stage3", s3_coeffs, s3_tree))
         for name, coeffs_b, tree in all_trees:
-            lde_cols = bundle_lde(name, coeffs_b)
-            vals = gl.to_u64(gl.take(lde_cols, idx_arr, axis=1).t())
-            del lde_cols
-            if backend is None:
+            if mesh is None:
+                lde_cols = bundle_lde(name, coeffs_b)
+                vals = gl.to_u64(gl.take(lde_cols, idx_arr, axis=1).t())
+                del lde_cols
+            else:
+                vals = gl.to_u64(mesh_query_values(name, coeffs_b,
+                                                   idx_arr).t())
+            if isinstance(tree, pm.ShardedTree):
+                pth = gl.to_u64(pm.open_sharded(tree, idx_arr, mesh))
+            elif backend is None:
                 pth = gl.to_u64(mk.open_indices(tree, idx_arr))
             else:
                 pth = backend.open(tree, idx_set)
