@@ -7,7 +7,8 @@
                                      # log demuxer, the hash block's hash
                                      # circuits, the whole block's 13 base
                                      # types at production geometry, then
-                                     # its full chain over 8 and 7: tower,
+                                     # its full chain over the 11 types of
+                                     # its tower (1-3, 5-9, 11-13): tower,
                                      # a blob, compression for the wrapper
                                      # and the "binding" SNARK, then mode
                                      # 1 at LDE 32 and the "pi" SNARK;
@@ -38,7 +39,10 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                the out-of-circuit VM, u16 x 16 limbs, 2^16 rows, 50 queries):
                trace, artifacts, witness, setup, prove twice, verify, public
                inputs as expected, three tampered proofs rejected; launch
-               counters of this phase alone
+               counters of this phase alone; with --out, the proof, its VK
+               and a summary written into main_vm_production/ beside that
+               file (test_artifacts/main_vm_production_*, judged by the JAX
+               package's verifier in tests/test_torch_tower13.py)
   9. sorters_golden  the first instance of each memory and log circuit of
                the golden block (RAM permutation, events sorter, storage
                sorter, log demuxer) proved on the card equals
@@ -47,11 +51,9 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                geometry (GeometryConfig() capacities, 50 queries): the
                production VKs of types 8, 11, 12, 9 and 4 equal
                setup/setup/base_layer/vk_N.json; the block's one instance of
-               each of types 8, 11, 9 and 4 is decomposed, and those of 8,
-               11 and 9 proved, verified, their public inputs checked, and
-               a tampered public input and OOD value rejected (type 4's
-               proof at this geometry is phase `block`'s); launch counters
-               of this phase
+               each of types 8, 11, 9 and 4 is decomposed (the proofs at
+               this geometry of 8, 11 and 9 are phase `tower13`'s, type
+               4's phase `block`'s); launch counters of this phase
   11. hashes_golden  the first instance of each hash circuit of the small
                hash block (keccak 5, SHA-256 6, L1-messages hasher 13, code
                decommitter 3, decommitments sorter 2) proved on the card
@@ -61,13 +63,13 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                production geometry: the production VKs of types 2, 3, 6 and
                13 equal setup/setup/base_layer/vk_N.json (type 5's digest
                printed); every instance of types 5, 6, 13, 3 and 2
-               decomposed, the instance of 5, 6, 13 and 2 and the first of
-               the four of 3 proved, verified, public inputs checked (the
-               hasher's digest is keccak256 of the L1 messages, the
-               decommitter's the SHA-256 in its versioned hash, the round
-               functions' final
-               accumulators in the last PI lanes); tampered copies of the
-               first instance of each rejected; launch counters of this
+               decomposed, the instances of 5 and 6 proved, verified,
+               public inputs checked and tampered copies rejected (since PR
+               13 types 13, 3 and 2 are proved at this geometry in phase
+               `tower13`); the digests on the public inputs (the hasher's
+               is keccak256 of the L1 messages, the first decommitter's the
+               SHA-256 in its versioned hash, the round functions' final
+               accumulators in the last PI lanes); launch counters of this
                phase
   13. kernels_hashes  gl_mul and poseidon2_permute against their plain
                versions and timed at the hash path's shapes
@@ -78,15 +80,18 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                bodies, hash rounds, far calls, 7 ecrecover calls; 880
                cycles) through witness.oracle.create_artifacts_from_tracer at
                GeometryConfig(): every one of the 13 base types has an
-               instance; the first of each is proved and verified at
-               production geometry through layers.prove_base_instance, its
-               public inputs the expected ones, its VK equal to the committed
-               one (setup/setup/base_layer/vk_N.json, and
-               test_artifacts/vk_{7,10}_production.json); type 7 (secp256k1,
-               u8 limbs) and type 10 (depth 256, the first query's read and
-               write paths) proved twice to equal bytes and tampered copies
-               rejected; the storage roots chain from the artifacts' initial
-               to their final root; launch counters of this phase
+               instance; the first of each type outside the tower of phase
+               `tower13` (the log demuxer 4 and storage application 10) is
+               proved and verified at production geometry through
+               layers.prove_base_instance, its public inputs the expected
+               ones, its VK equal to the committed one
+               (setup/setup/base_layer/vk_4.json,
+               test_artifacts/vk_10_production.json); type 10 (depth 256,
+               the first query's read and write paths) proved twice to
+               equal bytes and tampered copies rejected; the storage roots
+               chain from the artifacts' initial to their final root;
+               launch counters of this phase (every instance of the other
+               types is proved in `tower13`)
   16. kernels_block  gl_mul and poseidon2_permute against their plain
                versions and timed at the new circuits' shapes
   17. tower_golden  the JAX package's golden tower (the RAM permutation of
@@ -117,43 +122,63 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                public input, cap digest, OOD value and opening refused by
                both the STARK verifier and the statement's gate check; K3
                launched
+  19b. tower13_golden  the JAX package's golden tower of the small whole
+               block (golden.WHOLE_GOLDEN at testing geometry, rate 2, cap
+               4, 2 queries) over types 1-6, 9 and 11-13 through
+               harness.run_block(tower=True, type_workers=10), a process a
+               type, on the card:
+               every base, leaf, node and scheduler VK and proof and the
+               scheduler's public inputs equal test_artifacts/tower13_*
+               (tools/gen_tower13_golden.py)
   20. tower    the whole block's full chain through
                full_chain.prove_block_full_chain at GeometryConfig(): base,
-               leaf and node proofs of types 8 and 7 and the scheduler at
-               production parameters (rate 2, cap 16, 50 queries, final FRI
-               size 512), the scheduler verifying one 496-byte blob's fold
-               proof (KzgSettings.testing(16), its final FRI size 256 so
-               that it folds) in a third slot, then
-               compression mode 1 for the wrapper (rate 2, cap 16, 40
-               queries, final 32; trees and transcript Poseidon2 over BN254
-               Fr, the trees on K3) and the "binding" BN254 PLONK wrapper
-               over its Fr VK; then a second wrap of the same scheduler
-               proof, compression mode 1 at LDE 32 and the "pi" wrapper;
-               each proof verified with
-               its expected public inputs; each leaf tail is its type's
-               recursion-queue tail; the scheduler proved twice to equal
-               bytes; a tampered leaf proof leaves gates of the node
-               unsatisfied and a tampered scheduler public input fails
-               verify; the block commitment binds the blob's output hash;
-               mode 1's public inputs are the scheduler's VK and public
-               inputs, and with one of the scheduler's public inputs
-               changed the STARK verifier refuses it (both modes); the
-               SNARKs' public input packs the scheduler's and a wrong one
-               (or another for-wrapper VK) is refused; with --out, the
-               for-wrapper proof, its VK and a summary written into
-               fw_production/ beside that file; per proof its shape, the
-               seconds of synthesis,
-               finalize, fill, setup, prove and verify, its peak memory and
-               launches; with --profile the chain once more under the
-               profiler for the device's idle share
+               leaf and node proofs of the 11 types of TOWER13_TYPES (every
+               type but the log demuxer 4 and storage application 10, whose
+               leaves do not fit the run) and the scheduler at production
+               parameters (rate 2, cap 16, 50 queries, final FRI size 512),
+               the types' base, leaf and node tasks in three processes on
+               the card (`type_workers`), the scheduler verifying one
+               496-byte blob's fold proof (KzgSettings.testing(16), its
+               final FRI size 256 so that it folds) in a slot after the
+               types', then compression mode 1 for the wrapper (rate 2, cap
+               16, 40 queries, final 32; trees and transcript Poseidon2
+               over BN254 Fr, the trees on K3) and the "binding" BN254
+               PLONK wrapper over its Fr VK; then a second wrap of the same
+               scheduler proof, compression mode 1 at LDE 32 and the "pi"
+               wrapper; each proof verified with its expected public
+               inputs; each leaf tail is its type's recursion-queue tail;
+               the scheduler proved twice to equal bytes; a tampered leaf
+               proof leaves gates of the node of type 7 unsatisfied and a
+               tampered scheduler public input fails verify; the block
+               commitment binds the blob's output hash; mode 1's public
+               inputs are the scheduler's VK and public inputs, and with
+               one of the scheduler's public inputs changed the STARK
+               verifier refuses it (both modes); the SNARKs' public input
+               packs the scheduler's and a wrong one (or another
+               for-wrapper VK) is refused; with --out, the for-wrapper
+               proof, its VK and a summary written into fw_production/
+               beside that file; the seconds, peak memory and launches of
+               the scheduler and of every wrap proof; with --profile the
+               chain once more under the profiler for the device's idle
+               share
+  20b. tower13  that chain's tower task by task: per base, leaf and node
+               proof of each type and for the scheduler its shape, the
+               seconds of synthesis, finalize, fill, setup, prove, verify
+               and of waiting for the card, its peak memory and its K1 and
+               K2 launches, beside the card's name and power limit; the
+               base VK under each leaf equal to the committed production
+               VK; a tampered scheduler public input refused; the deferred
+               types and why
   21. eip4844  the blob circuit at full width (4,096 elements, u8 limbs)
                at the chain's base config, elements and point from a seed:
                setup, prove, verify with the expected public inputs; the
                STARK verifier refuses the public inputs of a tampered
                element and opening value, and a tampered OOD value
-  22. kernels_tower, kernels_wrap  gl_mul and poseidon2_permute against
-               their plain versions and timed at the tower's shapes, at
-               compression mode 1's LDE and at the 4,096-element blob
+  22. kernels_tower, kernels_tower13, kernels_wrap  gl_mul and
+               poseidon2_permute against their plain versions and timed at
+               the tower's shapes, at each new leaf shape of `tower13` (its
+               columns over its rows; the widest leaf's commitment leaves),
+               at compression mode 1's LDE and at the 4,096-element blob
                circuit's
   23. kernels_fw  K3 (bn254_hash_rows, bn254_hash_pairs) against its plain
                version (exact Python ints) at 1,024 rows of mode 1's 72
@@ -173,9 +198,10 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                --recursion` writes its VKs, `prove-block --types 8` its
                scheduler, compression and SNARK proofs and block commitment
                (test_artifacts/cli_*, tools/gen_cli_golden.py)
-  25. cli      the CLI at full width, one command at a time: `prove` of the
-               flagship (130 x 2^log_n, the CLI's config), `verify` in a
-               second process, a tampered copy refused; `generate-vks
+  25. cli      the CLI at full width: `prove` of the flagship (130 x
+               2^log_n, the CLI's config); then, three processes side by
+               side, `verify`, `verify` of a tampered copy (refused) and
+               `generate-vks
                --geometry production --types 1,5,7,10`, each VK equal to
                test_artifacts/vk_N_production.json; `bench-kernels`; wall
                seconds of each process and the launches of all but the
@@ -224,11 +250,13 @@ the run exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import hashlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -378,9 +406,10 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     """Phases `block_golden`, `block` and `kernels_block`: the golden
     ecrecover (7) and storage-application (10) proofs on the card, then one
     whole block through `create_artifacts_from_tracer` at `GeometryConfig()`
-    with one instance of each of the 13 base types proved and verified, then
-    K1 and K2 against their plain versions and timed at the new circuits'
-    shapes. Returns (the block path's launches, its kernel timings)."""
+    with every base type's instances counted and one instance of each type
+    outside `TOWER13_TYPES` (4, 10) proved and verified, then K1 and K2
+    against their plain versions and timed at the new circuits' shapes.
+    Returns (the block path's launches, its kernel timings)."""
     import torch
 
     from zkevm_harness_tpu_torch import golden
@@ -519,6 +548,11 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     per_type = {}
     with ly.engine_override(bcfg):
         for ctype in (7, 10, 1, 2, 3, 4, 5, 6, 8, 9, 11, 12, 13):
+            if ctype in TOWER13_TYPES:
+                # every instance proved, and its VK checked, in `tower13`
+                per_type[ctype] = {"instances": counts[ctype],
+                                   "proved_in": "tower13"}
+                continue
             insts, ch, cap = payloads[ctype]
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -571,7 +605,7 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                     raise SystemExit(f"block: type {ctype}: public inputs are "
                                      "not the expected ones")
                 sub.update(verify_s=round(verify_s, 3), public_inputs=len(want))
-                if ctype in (7, 10) and k == 0:
+                if ctype == 10 and k == 0:
                     again, warm_s = timed(prove)
                     if serde.proof_to_json(again) != \
                             serde.proof_to_json(proof):
@@ -752,6 +786,7 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     del gres, gsrc
     ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
+    tower13_golden_phase(dev, phase)
 
     # -- tower: the whole block's full chain at production parameters -------
     bcfg = pk.PlonkishConfig(**golden.TOWER_CONFIG)
@@ -759,7 +794,9 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     code = golden.whole_block(isa, **golden.WHOLE_BLOCK)
     contracts = dict(golden.hash_callees(isa,
                                          golden.WHOLE_BLOCK["callee_reps"]))
-    spot = (8, 7)
+    # the chain's tower is the whole block's over every type that fits the
+    # run (phase `tower13` reports it task by task)
+    spot = TOWER13_TYPES
     settings = kzg.KzgSettings.testing(16)
     blob = bytes(np.random.default_rng(4844).integers(
         0, 256, size=31 * 16, dtype=np.uint8))
@@ -769,18 +806,23 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     msm_before = dict(native.MSM_CALLS)
 
     def run_chain():
-        return fc.prove_block_full_chain(
-            code, chain_types=spot, geometry=geo, base_cfg=bcfg,
-            recursion_cfg=bcfg, compression_layers=1, contracts=contracts,
-            for_wrapper=True, snark_mode="binding", blobs=[blob],
-            blob_kzg_settings=settings, blob_cfg=blob_cfg, device=dev)
+        with _worker_allocator():
+            return fc.prove_block_full_chain(
+                code, chain_types=spot, geometry=geo, base_cfg=bcfg,
+                recursion_cfg=bcfg, compression_layers=1,
+                contracts=contracts, for_wrapper=True, snark_mode="binding",
+                blobs=[blob], blob_kzg_settings=settings, blob_cfg=blob_cfg,
+                type_workers=TOWER13_WORKERS, device=dev)
 
     ck.reset_launches()
     t_path = time.time()
     chain = run_chain()
     torch.cuda.synchronize()
     chain_s = time.time() - t_path
-    launches_tower = dict(ck.LAUNCHES)
+    # this process's launches and those of the processes that proved the
+    # types' subtrees
+    launches_tower = {k: v + chain.block.worker_launches.get(k, 0)
+                      for k, v in ck.LAUNCHES.items()}
     for name in ("gl_mul", "poseidon2_permute", "bn254_hash_rows",
                  "bn254_hash_pairs"):
         if launches_tower[name] <= 0:
@@ -805,7 +847,7 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     srec = src.get_scheduler_proof()
     if not srec or not srec.get("real") or srec["types"] != sorted(spot) \
             or srec["num_blob_slots"] != 1:
-        raise SystemExit("tower: no real scheduler proof with two type "
+        raise SystemExit("tower: no real scheduler proof with the types' "
                          "slots and one blob slot")
     # the scheduler proved again from the same witness: the same bytes
     sb, slay, sbuilt, ssetup, sW = rigs[("scheduler_witness",)]
@@ -817,10 +859,11 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
         raise SystemExit("tower: a second scheduler prove gave a different "
                          "proof")
     del again, sW
-    # a tampered leaf proof under the node of type 8 leaves gates unsatisfied
-    nkey = next(k for k in rigs if k[0] == "node" and k[1] == 8)
-    nb, nlay = rigs[nkey][0], rigs[nkey][1]
-    lrec = src.get_leaf_layer_proof(int(leaf_for(8)), 0)
+    # a tampered leaf proof under the node of type 7 leaves gates
+    # unsatisfied (its node circuit made again here: the subtrees' circuits
+    # stayed in their processes)
+    nb, nlay = nc.synthesize_node(rigs[("leaf_final", 7)][0], bcfg, 1)
+    lrec = src.get_leaf_layer_proof(int(leaf_for(7)), 0)
     honest = nb.unsatisfied_gates(nb.eval_values(nc.node_assignments(
         nlay, lrec["vk"], [lrec["proof"]]), dev), device=dev)
     bad_leaf = copy.deepcopy(lrec["proof"])
@@ -963,7 +1006,9 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     if not all(tamper.values()) or not all(wrap.values()):
         raise SystemExit(f"tower: a check of the chain failed: {tamper} "
                          f"{wrap}")
-    tasks = {task_name(k): rounded(v) for k, v in res.tower_stats.items()}
+    # the tower's tasks one by one: phase `tower13`
+    tasks = {task_name(k): rounded(v) for k, v in res.tower_stats.items()
+             if k[0] == "scheduler"}
     wrap_stats = {k: rounded(v) for k, v in chain.stats.items()}
     wrap_stats["pi_compression_1"] = rounded(verifier.stats[1])
     wrap_stats["pi_snark"] = rounded(pi_snark_stats)
@@ -992,6 +1037,7 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
           commitment_binds_blob=commitment, wrap_checks=wrap,
           tampered_rejected=tamper, native_msm_runs=msm_runs,
           launches=launches_tower)
+    leaf_shapes = tower13_phase(dev, phase, res, sum(res.timings.values()))
     launches_pi_wrap = dict(launches_pi_wrap)
     del res, src, rigs, sb, slay, sbuilt, ssetup, nb, nlay, chain, verifier
     del final, final1, mode1
@@ -1053,6 +1099,8 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
           timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                       for kk, vv in t.items()}
                   for k, t in timing_tower.items()})
+    timing_t13 = kernels_tower13_phase(dev, phase, leaf_shapes, check_equal,
+                                       cuda_ms, errs)
 
     # -- kernels_wrap: K1 and K2 at mode 1's LDE and the blob circuit's -------
     # mode 1's columns on its LDE-32 domain for the multiply and its leaves
@@ -1063,7 +1111,7 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
               "gl_mul_blob": (blob_shape[0], 2 << blob_shape[1])}
     timing_wrap = {}
     for key, shape in shapes.items():
-        ta, tb = rand_field(shape), rand_field(shape)
+        ta, tb = rand_field_on(dev, shape), rand_field_on(dev, shape)
         errs["gl_mul"] = max(errs["gl_mul"], check_equal(
             key, ck.gl_mul(ta, tb), ck.gl_mul_plain(ta, tb)))
         timing_wrap[key] = {
@@ -1074,7 +1122,7 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
         del ta, tb
         torch.cuda.empty_cache()
     states = lde << log_n
-    ts = rand_field((states, 12))
+    ts = rand_field_on(dev, (states, 12))
     errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
         "poseidon2 mode-1 shape", ck.poseidon2_permute(ts),
         ck.poseidon2_permute_plain(ts)))
@@ -1101,7 +1149,291 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                                  cuda_ms, errs, mode1_shape)
     paths = {"full_chain": launches_tower, "pi_wrap": launches_pi_wrap,
              "fw_golden": launches_fw, "eip4844": launches_blob}
-    return paths, timing_tower, timing_wrap, timing_fw
+    return paths, timing_tower, timing_wrap, timing_fw, timing_t13
+
+
+# The base types of phase `tower13`: every type of the whole block whose
+# leaf fits the script's time limit, the narrow ones first. The others wait
+# for the next slice; PERF.md (section 4) and ROADMAP.md (A'.2) give their
+# leaves' measured host seconds.
+TOWER13_TYPES = (1, 2, 3, 5, 6, 7, 8, 9, 11, 12, 13)
+# processes proving the types' base, leaf and node tasks side by side
+# (`harness.run_block(type_workers=...)`): the host's synthesis, the larger
+# part of a leaf's time, runs three at a time on the machine's cores
+TOWER13_WORKERS = 3
+# the hash circuits phase `hashes` proves itself; phase `tower13` proves
+# the others (2, 3, 13) at that geometry
+HASHES_PROVED = (5, 6)
+TOWER13_DEFERRED = {
+    4: "log demuxer: its leaf (2^23 x 48, 37,975,597 gates) ran out of the "
+       "card's memory in the prove, after 148 s of host synthesis, "
+       "finalize and fill (tools/leaf_probe.py)",
+    10: "storage application: 18 paths make one leaf of arity 18, about "
+        "183 M gates (10,176,445 a path): some 575 s of host work and "
+        "210 GB of host memory"}
+
+
+@contextlib.contextmanager
+def _worker_allocator():
+    """The allocator setting of the `type_workers` processes: freed
+    segments go back to the card (the leaves' proves take turns with the
+    other processes' held memory on the one card). Set for the spawned
+    processes only; this one's allocator is already running."""
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def rand_field_on(dev, shape):
+    """Canonical Goldilocks values drawn on the card (the host's generator
+    takes seconds at the wide kernel phases' sizes): u64 bit patterns, the
+    rare one at or above p less p."""
+    import torch
+    x = torch.randint(-(1 << 63), (1 << 63) - 1, shape, dtype=torch.int64,
+                      device=dev)
+    high = (x < 0) & (x >= -((1 << 32) - 1))
+    return torch.where(high, x + ((1 << 32) - 1), x)
+
+
+def _golden_json(name):
+    with open(os.path.join(GOLDEN_DIR, name)) as f:
+        return json.load(f)
+
+
+def tower13_golden_phase(dev, phase):
+    """Phase `tower13_golden`: the JAX package's golden tower of the small
+    whole block over `golden.TOWER13_GOLDEN_TYPES`, made on the card by
+    `harness.run_block(tower=True)`: every base, leaf, node and scheduler
+    VK and proof, and the scheduler's public inputs, equal its bytes."""
+    import torch
+
+    from zkevm_harness_tpu_torch import golden, harness
+    from zkevm_harness_tpu_torch.circuits.types import leaf_for
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.utils import serde
+    from zkevm_harness_tpu_torch.vm import isa
+
+    golden_json = _golden_json
+
+    def as_json(proof):
+        return json.loads(json.dumps(serde.proof_to_json(proof)))
+
+    # -- tower13_golden: the JAX package's tower of the small whole block ----
+    t0 = time.time()
+    gcfg = pk.PlonkishConfig(**golden.TOWER_GOLDEN_CONFIG)
+    gtypes = tuple(golden.TOWER13_GOLDEN_TYPES)
+    contracts = dict(golden.hash_callees(
+        isa, golden.WHOLE_GOLDEN["callee_reps"]))
+    with _worker_allocator(), ly.engine_override(gcfg):
+        gres = harness.run_block(
+            golden.whole_block(isa, **golden.WHOLE_GOLDEN),
+            prove_mode="spot", spot_types=gtypes, contracts=contracts,
+            tower=True, recursion_cfg=gcfg,
+            # the golden circuits are small (testing geometry, 2 queries):
+            # a process a type
+            type_workers=len(gtypes), device=dev)
+    gsrc = gres.source
+    want = golden_json("tower13_summary.json")
+    compared = 0
+    for t in gtypes:
+        leaf = gsrc.get_leaf_layer_proof(int(leaf_for(t)), 0)
+        node = gsrc.get_node_layer_proof(t, 0, 0)
+        bases = [gsrc.get_base_layer_proof(t, i)["proof"]
+                 for i in range(want["leaves"][str(t)]["num_real"])]
+        if [as_json(p) for p in bases] != \
+                golden_json(f"tower13_base_{t}_proofs.json"):
+            raise SystemExit(f"tower13_golden: the base proofs of type {t} "
+                             "differ from the golden JSON")
+        for kind, rec in (("leaf", leaf), ("node", node)):
+            if not rec or not rec.get("real") or \
+                    [int(v) for v in rec["vk"]] != golden_json(
+                        f"tower13_{kind}_{t}_vk.json") or \
+                    as_json(rec["proof"]) != golden_json(
+                        f"tower13_{kind}_{t}_proof.json"):
+                raise SystemExit(f"tower13_golden: the {kind} VK or proof of "
+                                 f"type {t} differs from the golden JSON")
+        compared += 2 + len(bases)
+    srec = gsrc.get_scheduler_proof()
+    if [int(v) for v in srec["vk"]] != golden_json(
+            "tower13_scheduler_vk.json") or as_json(srec["proof"]) != \
+            golden_json("tower13_scheduler_proof.json") or \
+            [int(v) for v in srec["scheduler_pi"]] != want["scheduler_pi"]:
+        raise SystemExit("tower13_golden: the scheduler's VK, proof or "
+                         "public inputs differ from the golden JSON")
+    phase("tower13_golden", config=golden.TOWER_GOLDEN_CONFIG,
+          block=golden.WHOLE_GOLDEN, spot_types=list(gtypes),
+          proofs_equal=compared + 1, vk_equal=True, proof_equal=True,
+          scheduler_pi_equal=True, verify=True,
+          total_s=round(time.time() - t0, 3))
+    del gres, gsrc, srec
+    ly._SETUP_CACHE.clear()
+    torch.cuda.empty_cache()
+
+
+def tower13_phase(dev, phase, res, wall_s):
+    """Phase `tower13`: the whole block's tower at production parameters
+    over `TOWER13_TYPES`, as the full chain of phase `tower` proved it
+    (`res`, its `harness.run_block` result): every instance's base proof, a
+    leaf and a node of each type, the scheduler over their slots (and the
+    blob's), each verified with its expected public inputs in the run; here
+    each leaf's tail is its recursion-queue tail, the base VK under each
+    leaf equals the committed production VK, and a tampered scheduler
+    public input is refused. Prints per task its shape, the seconds of
+    synthesis, finalize, fill, setup, prove, verify and of waiting for the
+    card, its peak memory and its K1 and K2 launches, and their sums over
+    the tower. Returns the new leaves' (columns, log rows)."""
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits.types import leaf_for
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+
+    P = gl.P
+    bcfg = pk.PlonkishConfig(**golden.TOWER_CONFIG)
+
+    def task_name(key):
+        kind, ctype, _depth, index = key
+        if kind == "leaf":
+            ctype -= 2  # the base type the leaf aggregates
+        if kind == "scheduler":
+            return kind
+        return f"{kind}_{ctype}" + (f"_{index}" if kind == "base" else "")
+
+    src, rigs = res.source, res.recursion_rigs
+    instances = {t: len(m.instances) for t, m in res.circuit_makers.items()}
+    vks = {}
+    for t in TOWER13_TYPES:
+        for i in range(instances[t]):
+            rec = src.get_base_layer_proof(t, i)
+            if not rec or not rec.get("real"):
+                raise SystemExit(f"tower13: no real base proof {i} of type "
+                                 f"{t}")
+        leaf = src.get_leaf_layer_proof(int(leaf_for(t)), 0)
+        node = src.get_node_layer_proof(t, 0, 0)
+        if not leaf or not leaf.get("real") or not node or \
+                not node.get("real") or leaf["num_real"] != instances[t]:
+            raise SystemExit(f"tower13: no real leaf over every instance, or "
+                             f"no real node, of type {t}")
+        tail = [int(v) % P for v in res.artifacts.recursion_queues[t].tail]
+        if [int(v) for v in leaf["proof"].public_inputs[-12:]] != tail:
+            raise SystemExit(f"tower13: the leaf tail of type {t} is not its "
+                             "recursion-queue tail")
+        # the leaf's public inputs open with the base VK it verified
+        # in-circuit: the committed production VK of the type
+        vk = [int(v) for v in leaf["proof"].public_inputs[:-16]]
+        path = os.path.join(PROD_VK_DIR, f"vk_{t}.json")
+        if not os.path.exists(path):
+            path = os.path.join(GOLDEN_DIR, f"vk_{t}_production.json")
+        if vk != _golden_json(path):
+            raise SystemExit(f"tower13: the base VK under the leaf of type "
+                             f"{t} differs from {path}")
+        vks[t] = os.path.relpath(path, REPO_DIR)
+    srec = src.get_scheduler_proof()
+    if not srec or not srec.get("real") or \
+            srec["types"] != sorted(TOWER13_TYPES):
+        raise SystemExit("tower13: no real scheduler proof over the types' "
+                         "slots")
+    sir, svk = rigs[("scheduler",)]
+    bad = copy.deepcopy(srec["proof"])
+    bad.public_inputs[0] = (int(bad.public_inputs[0]) + 1) % P
+    if pk.verify(sir, svk, bad, bcfg, device=dev):
+        raise SystemExit("tower13: a tampered scheduler public input was "
+                         "accepted")
+    keys = ("log_n", "width", "gates", "arity", "synthesis_s", "finalize_s",
+            "fill_s", "setup_s", "prove_s", "verify_s", "device_wait_s",
+            "max_memory_allocated")
+    tasks, launches = {}, {}
+    for key, st in res.tower_stats.items():
+        row = {k: (round(st[k], 3) if isinstance(st[k], float) else st[k])
+               for k in keys if k in st}
+        row["launches"] = {k: st["launches"][k]
+                           for k in ("gl_mul", "poseidon2_permute")}
+        tasks[task_name(key)] = row
+        for k, v in st["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("gl_mul", "poseidon2_permute"):
+        if launches[name] <= 0:
+            raise SystemExit(f"tower13 launched {name} no time")
+    phase("tower13", nvidia_smi=nvidia_smi_line(), block=golden.WHOLE_BLOCK,
+          config=golden.TOWER_CONFIG, spot_types=list(TOWER13_TYPES),
+          type_workers=TOWER13_WORKERS,
+          # host memory: this process's peak, and the largest of the ended
+          # child processes' (the workers; before them only nvcc's)
+          host_max_rss={"script": resource.getrusage(
+              resource.RUSAGE_SELF).ru_maxrss * 1024,
+              "largest_worker": resource.getrusage(
+                  resource.RUSAGE_CHILDREN).ru_maxrss * 1024},
+          deferred={str(t): why for t, why in TOWER13_DEFERRED.items()},
+          instances=instances, cycles=res.cycles,
+          timings={k: round(v, 3) for k, v in res.timings.items()},
+          wall_s=round(wall_s, 3), tasks=tasks,
+          scheduler_pi=[int(v) for v in srec["scheduler_pi"]],
+          base_vk_equal=vks, leaf_tails_equal_queue_tails=True,
+          scheduler_tampered_rejected=True, launches=launches)
+    leaf_shapes = sorted({(st["width"], st["log_n"])
+                          for k, st in res.tower_stats.items()
+                          if k[0] == "leaf"} - {(48, 19)})
+    return leaf_shapes
+
+
+def kernels_tower13_phase(dev, phase, leaf_shapes, check_equal, cuda_ms,
+                          errs):
+    """Phase `kernels_tower13`: K1 and K2 against their plain versions and
+    timed at the new leaves' shapes: each leaf shape's columns over its
+    rows (a coset of its quotient) for the multiply, and the widest leaf's
+    rate-2 commitment leaves for the permutation. Returns the timings."""
+    import torch
+
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+
+    def rand_field(shape):
+        return rand_field_on(dev, shape)
+
+    timing = {}
+    for width, log_n in leaf_shapes:
+        shape = (width, 1 << log_n)
+        ta, tb = rand_field(shape), rand_field(shape)
+        errs["gl_mul"] = max(errs["gl_mul"], check_equal(
+            f"gl_mul leaf {shape}", ck.gl_mul(ta, tb),
+            ck.gl_mul_plain(ta, tb)))
+        timing[f"gl_mul_leaf_{width}x2^{log_n}"] = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: ck.gl_mul(ta, tb), 2, 10),
+            "plain_ms": cuda_ms(lambda: ck.gl_mul_plain(ta, tb), 1, 3),
+            "bytes": 3 * 8 * ta.numel(), "ops": ta.numel() * OPS_MUL}
+        del ta, tb
+        torch.cuda.empty_cache()
+    states = 2 << max(log_n for _w, log_n in leaf_shapes)
+    ts = rand_field((states, 12))
+    errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
+        "poseidon2 leaf shape", ck.poseidon2_permute(ts),
+        ck.poseidon2_permute_plain(ts)))
+    timing["poseidon2_permute_leaf"] = {
+        "shape": [states, 12],
+        "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), 2, 10),
+        "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+        "bytes": 2 * 8 * 12 * states,
+        "ops": states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
+    del ts
+    torch.cuda.empty_cache()
+    for t in timing.values():
+        by = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+        op = t["ops"] / PEAK_INT_ALU_PER_S * 1e3
+        t["bound_ms"] = max(by, op)
+        t["bound_by"] = "bytes" if by >= op else "operations"
+    phase("kernels_tower13", nvidia_smi=nvidia_smi_line(), tolerance=0,
+          max_abs_err={k: errs[k] for k in ("gl_mul", "poseidon2_permute")},
+          timing={k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                      for kk, vv in t.items()}
+                  for k, t in timing.items()})
+    return timing
 
 
 # K3's times in its first design (four 64-bit limbs, CIOS on a * b and
@@ -1732,22 +2064,20 @@ def tampered_proof_file(path, out):
     return out
 
 
-def cli_verify_round(tmp, proof_path, counts, shape=(), side_by_side=True):
+def cli_verify_round(tmp, proof_path, counts, shape=(), more=()):
     """verify on the proof (VALID, exit 0) and on a tampered copy (INVALID,
-    exit 1), each in a process of its own, the two at once or one after the
-    other. Returns their seconds."""
+    exit 1), each in a process of its own, the two at once, beside the
+    `run_cli_batch` jobs of `more`. Returns their seconds and the outputs
+    of `more`."""
     bad = tampered_proof_file(proof_path, os.path.join(tmp, "tampered.json"))
     jobs = [(["verify", *shape, "--proof", proof_path], 0, True),
-            (["verify", *shape, "--proof", bad], 1, True)]
-    if side_by_side:
-        ran = run_cli_batch(jobs, tmp, counts)
-    else:
-        ran = [run_cli_batch([job], tmp, counts)[0] for job in jobs]
-    (ok_text, ok_s), (bad_text, bad_s) = ran
+            (["verify", *shape, "--proof", bad], 1, True), *more]
+    (ok_text, ok_s), (bad_text, bad_s), *rest = run_cli_batch(jobs, tmp,
+                                                              counts)
     if ok_text != "VALID\n" or bad_text != "INVALID\n":
         raise SystemExit(f"cli verify printed {ok_text!r} and, on a "
                          f"tampered proof, {bad_text!r}")
-    return ok_s, bad_s
+    return ok_s, bad_s, rest
 
 
 def cli_phases(args, phase, tmp):
@@ -1783,7 +2113,7 @@ def cli_phases(args, phase, tmp):
             GOLDEN_DIR, "cli_prove_log8_w16.json")):
         raise SystemExit("cli_golden: the prove file differs from the JAX "
                          "CLI's")
-    secs["verify"], secs["verify_tampered"] = cli_verify_round(
+    secs["verify"], secs["verify_tampered"], _ = cli_verify_round(
         tmp, out, counts_golden)
     for key, name in (("geometry", "cli_geometry.txt"),
                       ("geometry --measured", "cli_geometry_measured.txt")):
@@ -1819,12 +2149,14 @@ def cli_phases(args, phase, tmp):
     shape = ["--log-n", str(args.log_n), "--width", str(WIDTH)]
     out = os.path.join(tmp, "cli_prove_full.json")
     _, prove_s = run_cli(["prove", *shape, "--out", out], tmp, counts)
-    verify_s, tampered_s = cli_verify_round(tmp, out, counts, shape,
-                                            side_by_side=False)
+    # both verifies and generate-vks at once, for the script's time: each
+    # command's seconds are its process's, side by side
     vks = os.path.join(tmp, "vks_production")
-    text, vks_s = run_cli(
-        ["generate-vks", "--geometry", "production", "--types",
-         ",".join(str(t) for t in PROD_VK_TYPES), "--out", vks], tmp, counts)
+    verify_s, tampered_s, [(text, vks_s)] = cli_verify_round(
+        tmp, out, counts, shape, more=[(
+            ["generate-vks", "--geometry", "production", "--types",
+             ",".join(str(t) for t in PROD_VK_TYPES), "--out", vks], 0,
+            True)])
     per_type = {}
     for line in text.splitlines():
         # [vks] base[t] vk written (2^a x w, 1.2s, sha256 ...)
@@ -2422,11 +2754,12 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's per-kernel register and spill report")
     ap.add_argument("--profile", action="store_true",
-                    help="prove each main path (and each memory and log "
-                         "circuit, and each hash circuit) once more under "
-                         "torch.profiler, and run the full chain once more "
-                         "under it, and print the device's busy share and "
-                         "the top kernels")
+                    help="prove each main path (and each hash circuit "
+                         "phase `hashes` proves, and type 10 of phase "
+                         "`block`) once more under torch.profiler, "
+                         "and run the full chain once more under it, and "
+                         "print the device's busy share and the top "
+                         "kernels")
     ap.add_argument("--compare-broadcast", action="store_true",
                     help="prove again with the elementwise kernels' broadcast "
                          "operands materialised in PyTorch (all of them, and "
@@ -2437,8 +2770,10 @@ def main(argv=None) -> int:
                          "DIR and print each kernel's instruction counts")
     ap.add_argument("--out", default=None,
                     help="also write all phase records to this JSON file, "
-                         "and the production for-wrapper proof, its VK "
-                         "and a summary into fw_production/ beside it")
+                         "and the production for-wrapper proof and the "
+                         "production MainVM proof, each with its VK and a "
+                         "summary, into fw_production/ and "
+                         "main_vm_production/ beside it")
     args = ap.parse_args(argv)
     if args.log_n < 16:
         ap.error("--log-n must be at least 16")
@@ -2974,6 +3309,23 @@ def main(argv=None) -> int:
     if not all(mv_rejected.values()):
         raise SystemExit(f"main_vm: a tampered proof was accepted: "
                          f"{mv_rejected}")
+    # the proof and its VK, for the JAX package's verifier
+    # (tests/test_torch_tower13.py, `slow`), beside the --out file
+    if args.out:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(args.out)),
+                               "main_vm_production")
+        os.makedirs(out_dir, exist_ok=True)
+        summary = dict(cycles=MAIN_VM_CYCLES,
+                       geometry=dataclasses.asdict(mv_geo),
+                       config=dataclasses.asdict(mv_cfg),
+                       shape=[mv_ir.log_n, mv_ir.num_witness],
+                       public_inputs=expected_pis)
+        for name, obj in (("main_vm_production_vk.json", mv_vk),
+                          ("main_vm_production_proof.json",
+                           serde.proof_to_json(mv_proof)),
+                          ("main_vm_production_summary.json", summary)):
+            with open(os.path.join(out_dir, name), "w") as f:
+                json.dump(obj, f)
     phase("main_vm", cycles=MAIN_VM_CYCLES, log_n=mv_geo.log_n,
           limb_bits=mv_geo.limb_bits, num_limbs=mv_geo.num_limbs,
           width=mv_ir.num_witness,
@@ -3108,12 +3460,10 @@ def main(argv=None) -> int:
     ck.reset_launches()
     t_path = time.time()
     with ly.engine_override(mv_cfg):
-        for name, ctype, setup_of, decompose, prove_one, verify_one, \
-                pis_of in sorter_circuits(streams, prod_caps):
+        for name, ctype, setup_of, decompose, _prove, _verify, \
+                _pis in sorter_circuits(streams, prod_caps):
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            before = dict(ck.LAUNCHES)
-            (insts, chals), art_s = timed(decompose)
+            (insts, _chals), art_s = timed(decompose)
             if len(insts) != 1:
                 raise SystemExit(f"sorters: {name}: expected one instance, "
                                  f"got {len(insts)}")
@@ -3130,90 +3480,17 @@ def main(argv=None) -> int:
                         raise SystemExit(f"sorters: the production VK of "
                                          f"type {t} differs from "
                                          f"setup/setup/base_layer/vk_{t}.json")
-            if name == "demux":
-                # decomposed and its VK compared only (about 30 s of the
-                # script): phase `block` proves type 4 at the same geometry
-                # and VK
-                per_type[name] = {
-                    "circuit_type": ctype, "log_n": sd.ir.log_n,
-                    "width": sd.ir.num_witness, "vk_equal": sorted(vks),
-                    "items": int(getattr(inst, "num_items", 0)),
-                    "artifacts_s": round(art_s, 3),
-                    "setup_s": round(setup_s, 3), "proved": False}
-                del sd, geo
-                ly._SETUP_CACHE.clear()
-                continue
-            tracing.GLOBAL.spans.clear()
-            before_prove = dict(ck.LAUNCHES)
-            proof, prove_s = timed(lambda: prove_one(inst, chals))
-            one_prove = {k: ck.LAUNCHES[k] - before_prove[k]
-                         for k in ck.LAUNCHES}
-            spans = tracing.GLOBAL.flat_durations()
-            fill_s = spans.get("layers.witness", 0.0)
-            stages = prove_stages(spans)
-            ok, verify_s = timed(lambda: verify_one(inst, chals, proof))
-            if not ok:
-                raise SystemExit(f"sorters: {name} proof does not verify")
-            profiled = {}
-            if args.profile:  # the device's busy share of a warm prove:
-                # one prove timed, one more under the profiler, their
-                # launches taken back out of the path's counts
-                counted = dict(ck.LAUNCHES)
-                _, warm_s = timed(lambda: prove_one(inst, chals))
-                _, rows = device_rows(lambda: prove_one(inst, chals),
-                                      host_too=False)
-                ck.LAUNCHES.update(counted)
-                busy_s = sum(r[2] for r in rows) / 1e6
-                profiled = {"prove_warm_s": round(warm_s, 3),
-                            "device_busy_s": round(busy_s, 3),
-                            "device_idle_share": round(1 - busy_s / warm_s,
-                                                       3)}
-            expected = [int(v) % P for v in pis_of(geo, inst, chals)]
-            if [int(v) for v in proof.public_inputs] != expected:
-                raise SystemExit(f"sorters: {name}: public inputs are not "
-                                 "the expected ones")
-            assert len(proof.ood_witness) == sd.ir.num_witness
-            assert all(0 <= v < P for pair in proof.ood_witness
-                       for v in pair)
-            assert proof.witness_cap.shape == (mv_cfg.cap_size, 4)
-
-            def tampered(mutate):
-                bad = copy.deepcopy(proof)
-                mutate(bad)
-                return bad
-
-            # a public input: refused by the typed entry point (against the
-            # instance's) and by the verifier alone; an OOD value: by the
-            # typed entry point, which then runs the verifier
-            bad_pi = tampered(bump_pi)
-            tamper = {"public_input": not verify_one(inst, chals, bad_pi)
-                      and not pk.verify(sd.ir, sd.vk, bad_pi, sd.config,
-                                        device=dev),
-                      "ood_witness": not verify_one(inst, chals,
-                                                    tampered(bump_ood))}
-            if not all(tamper.values()):
-                raise SystemExit(f"sorters: {name}: a tampered proof was "
-                                 f"accepted: {tamper}")
+            # decomposed and its VK compared only: phase `tower13` proves
+            # the RAM permutation and the events and storage sorters (8, 11,
+            # 9) over the whole block, phase `block` the log demuxer (4), at
+            # the same geometry and VK
             per_type[name] = {
                 "circuit_type": ctype, "log_n": sd.ir.log_n,
-                "width": sd.ir.num_witness, "const_cols": sd.ir.num_const,
-                "gate_constraints": sd.ir.num_gate_constraints,
-                "lookup_sets": len(sd.ir.lookup_sets),
-                "public_inputs": len(expected),
+                "width": sd.ir.num_witness, "vk_equal": sorted(vks),
                 "items": int(getattr(inst, "num_items", 0)),
-                "vk_equal": sorted(vks), "artifacts_s": round(art_s, 3),
-                "setup_s": round(setup_s, 3),
-                "witness_fill_s": round(fill_s, 3),
-                "prove_s": round(prove_s, 3),
-                "verify_s": round(verify_s, 3), "verify": True,
-                "public_inputs_as_expected": True,
-                "tampered_rejected": tamper,
-                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                "launches": {k: ck.LAUNCHES[k] - before[k]
-                             for k in ck.LAUNCHES},
-                "launches_one_prove": one_prove,
-                "stages_s": stages, **profiled}
-            del proof, sd, geo
+                "artifacts_s": round(art_s, 3),
+                "setup_s": round(setup_s, 3), "proved": False}
+            del sd, geo
             ly._SETUP_CACHE.clear()
     launches_srt = dict(ck.LAUNCHES)
     path_s = time.time() - t_path
@@ -3406,6 +3683,41 @@ def main(argv=None) -> int:
                              f"accepted: {tamper}")
         return expected, tamper
 
+    def prove_checked(k, inst, name, sd, geo, ctx, rec, proves, verifies,
+                      fills, prove_one, verify_one, pis_of):
+        """Prove and verify one instance (the first: stages, launches,
+        tampered copies); its public inputs."""
+        tracing.GLOBAL.spans.clear()
+        before_prove = dict(ck.LAUNCHES)
+        proof, prove_s = timed(lambda: prove_one(inst, ctx))
+        if k == 0:
+            rec["launches_one_prove"] = {
+                kk: ck.LAUNCHES[kk] - before_prove[kk] for kk in ck.LAUNCHES}
+            rec["stages_s"] = prove_stages(tracing.GLOBAL.flat_durations())
+        fills.append(round(tracing.GLOBAL.flat_durations().get(
+            "layers.witness", 0.0), 3))
+        ok, verify_s = timed(lambda: verify_one(inst, ctx, proof))
+        if not ok:
+            raise SystemExit(f"hashes: {name} instance {k} does not verify")
+        proves.append(round(prove_s, 3))
+        verifies.append(round(verify_s, 3))
+        if k == 0:
+            if args.profile:  # as in phase `sorters`
+                counted = dict(ck.LAUNCHES)
+                _, warm_s = timed(lambda: prove_one(inst, ctx))
+                _, rows = device_rows(lambda: prove_one(inst, ctx),
+                                      host_too=False)
+                ck.LAUNCHES.update(counted)
+                busy_s = sum(r[2] for r in rows) / 1e6
+                rec["prove_warm_s"] = round(warm_s, 3)
+                rec["device_busy_s"] = round(busy_s, 3)
+                rec["device_idle_share"] = round(1 - busy_s / warm_s, 3)
+            expected, tamper = check_instance(
+                name, sd, geo, inst, ctx, proof, verify_one, pis_of)
+            rec["public_inputs"] = len(expected)
+            rec["tampered_rejected"] = tamper
+        return [int(v) for v in proof.public_inputs]
+
     with ly.engine_override(mv_cfg):
         for name, ctype, setup_of, decompose, prove_one, verify_one, \
                 pis_of in hash_circuits(hst, hprod_caps):
@@ -3437,44 +3749,20 @@ def main(argv=None) -> int:
             proves, verifies, fills = [], [], []
             # the first of the four code-decommitter instances only (the
             # same circuit, 12 s of the script): all four are decomposed
-            # and counted above
-            proved = insts[:1] if name == "decommitter" else insts
+            # and counted above. The decommitments sorter, the code
+            # decommitter and the hasher (2, 3, 13) are proved at this
+            # geometry in phase `tower13` over the whole block: here their
+            # digests are checked on the expected public inputs
+            checked = insts[:1] if name == "decommitter" else insts
+            proved = checked if ctype in HASHES_PROVED else []
             rec["instances_proved"] = len(proved)
-            for k, inst in enumerate(proved):
-                tracing.GLOBAL.spans.clear()
-                before_prove = dict(ck.LAUNCHES)
-                proof, prove_s = timed(lambda: prove_one(inst, ctx))
-                if k == 0:
-                    rec["launches_one_prove"] = {
-                        kk: ck.LAUNCHES[kk] - before_prove[kk]
-                        for kk in ck.LAUNCHES}
-                    spans = tracing.GLOBAL.flat_durations()
-                    rec["stages_s"] = prove_stages(spans)
-                fills.append(round(tracing.GLOBAL.flat_durations().get(
-                    "layers.witness", 0.0), 3))
-                ok, verify_s = timed(lambda: verify_one(inst, ctx, proof))
-                if not ok:
-                    raise SystemExit(f"hashes: {name} instance {k} does not "
-                                     "verify")
-                proves.append(round(prove_s, 3))
-                verifies.append(round(verify_s, 3))
-                if k == 0:
-                    if args.profile:  # as in phase `sorters`
-                        counted = dict(ck.LAUNCHES)
-                        _, warm_s = timed(lambda: prove_one(inst, ctx))
-                        _, rows = device_rows(lambda: prove_one(inst, ctx),
-                                              host_too=False)
-                        ck.LAUNCHES.update(counted)
-                        busy_s = sum(r[2] for r in rows) / 1e6
-                        rec["prove_warm_s"] = round(warm_s, 3)
-                        rec["device_busy_s"] = round(busy_s, 3)
-                        rec["device_idle_share"] = round(
-                            1 - busy_s / warm_s, 3)
-                    expected, tamper = check_instance(
-                        name, sd, geo, inst, ctx, proof, verify_one, pis_of)
-                    rec["public_inputs"] = len(expected)
-                    rec["tampered_rejected"] = tamper
-                pis = [int(v) for v in proof.public_inputs]
+            for k, inst in enumerate(checked):
+                if proved:
+                    pis = prove_checked(k, inst, name, sd, geo, ctx, rec,
+                                        proves, verifies, fills, prove_one,
+                                        verify_one, pis_of)
+                else:
+                    pis = [int(v) % P for v in pis_of(geo, inst, ctx)]
                 if name in ("keccak", "sha256"):
                     if pis[-5:-3] != [int(x) for x in art.final_accs] or \
                             pis[-1] != art.total_invocations:
@@ -3506,12 +3794,11 @@ def main(argv=None) -> int:
                 else:
                     rec["requests"] = int(inst.num_items)
                     rec["fresh"] = int(inst.out_items)
-                del proof
             rec.update({
                 "artifacts_s": round(art_s, 3), "setup_s": round(setup_s, 3),
                 "witness_fill_s": fills, "prove_s": proves,
-                "verify_s": verifies, "verify": True,
-                "public_inputs_as_expected": True,
+                "verify_s": verifies, "verify": bool(proved),
+                "public_inputs_as_expected": bool(proved),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "launches": {k: ck.LAUNCHES[k] - before[k]
                              for k in ck.LAUNCHES}})
@@ -3580,8 +3867,9 @@ def main(argv=None) -> int:
         args, dev, phase, rand_field, check_equal, cuda_ms, errs)
 
     # -- 17-22. the tower and the wrap: golden, full chain, blob, kernels ----
-    tower_paths, timing_tower, timing_wrap, timing_fw = tower_phases(
-        args, dev, phase, rand_field, check_equal, cuda_ms, errs)
+    tower_paths, timing_tower, timing_wrap, timing_fw, timing_t13 = \
+        tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms,
+                     errs)
 
     # -- 24-29. the CLI, the AIR STARK engine, the gadgets, the reference ----
     # dialect of the main path's proof
@@ -3727,6 +4015,10 @@ def main(argv=None) -> int:
         if tower_keys:
             out["tower"] = {b: {k: timing_tower[b][k] for k in keys}
                             for b in tower_keys}
+        t13_keys = [k for k in timing_t13 if k.startswith(name)]
+        if t13_keys:
+            out["tower13"] = {b: {k: timing_t13[b][k] for k in keys}
+                              for b in t13_keys}
         wrap_keys = [k for k in timing_wrap if k.startswith(name)]
         if wrap_keys:
             out["wrap"] = {b: {k: timing_wrap[b][k] for k in keys}

@@ -238,6 +238,8 @@ LIST_PATH_IRS = {
          lambda m: m.path_ir(m.PathGeometry(depth=4))),
     11: ("events_sorter_circuit", lambda m: m.events_ir(
         *dataclasses.astuple(tly.events_geometry_for_capacity(_geo(11))))),
+    12: ("events_sorter_circuit", lambda m: m.events_ir(
+        *dataclasses.astuple(tly.events_geometry_for_capacity(_geo(12))))),
     3: ("decommitter_circuit", lambda m: m.decommitter_ir(
         tly.code_decommitter_geometry_for_capacity(_geo(3)).log_n)),
     5: ("keccak_circuit", lambda m: m.keccak_ir(

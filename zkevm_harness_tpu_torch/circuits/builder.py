@@ -303,8 +303,6 @@ class CircuitBuilder:
         cv, cc = var_of[order], cells[order]
         starts = np.r_[0, np.flatnonzero(cv[1:] != cv[:-1]) + 1]
         ends = np.r_[starts[1:], len(cv)]
-        self._first_cell = dict(zip(cv[starts].tolist(),
-                                    cc[starts].tolist()))
         # one cycle per multi-cell variable: each cell to the next, the
         # last to the first
         succ = np.roll(cc, -1)
@@ -321,15 +319,29 @@ class CircuitBuilder:
 
         # public input cells: canonical (first) cell of each marked var
         pis = []
+        first_vars = cv[starts]
         for v in self.pi_vars:
-            assert v in self._first_cell, \
+            k = int(np.searchsorted(first_vars, v))
+            assert k < len(first_vars) and first_vars[k] == v, \
                 f"public var {v} has no constrained cell"
-            pis.append(tuple(divmod(self._first_cell[v], n)))
+            pis.append(tuple(divmod(int(cc[starts[k]]), n)))
 
-        ir = self._make_ir(log_n, num_witness, num_const, tuple(pis),
-                           copy_chunk)
+        self._ir_args = (log_n, num_witness, num_const, tuple(pis),
+                         copy_chunk)
+        ir = self._make_ir(*self._ir_args)
         return BuiltCircuit(ir=ir, const_cols=const, wiring=wiring,
                             layout=self)
+
+    def ir_shape(self) -> Dict:
+        """All that the IR of this finalized builder depends on, as plain
+        JSON values: `ir_from_shape` makes the same IR from them in another
+        process, without the program (a node or the scheduler verifying a
+        proof of this circuit needs only its IR)."""
+        log_n, num_witness, num_const, pis, copy_chunk = self._ir_args
+        return dict(slots=self.S, tiles=self.tiles, log_n=log_n,
+                    num_witness=num_witness, num_const=num_const,
+                    public_input_cells=[list(c) for c in pis],
+                    copy_chunk=copy_chunk)
 
     def _make_ir(self, log_n, num_witness, num_const, pis, copy_chunk):
         S, tiles, p2_base = self.S, self.tiles, self.p2_base
@@ -428,6 +440,17 @@ class CircuitBuilder:
             eval_gates_parts=parts, gate_part_counts=counts,
             gate_part_degrees=degs, gate_part_cols=cols)
 
+    @classmethod
+    def ir_from_shape(cls, shape: Dict) -> pk.PlonkishIR:
+        """The IR of a finalized builder from its `ir_shape()`."""
+        b = cls(slots=shape["slots"])
+        b.tiles, b.p2_base = shape["tiles"], 3 * shape["slots"]
+        return b._make_ir(shape["log_n"], shape["num_witness"],
+                          shape["num_const"],
+                          tuple(tuple(c) for c in
+                                shape["public_input_cells"]),
+                          shape["copy_chunk"])
+
     # -- witness evaluation ------------------------------------------------
 
     def _schedule(self):
@@ -443,9 +466,22 @@ class CircuitBuilder:
         lvl = array("l", bytes(8 * self.n_vars))
         ops_at: List[List[Tuple]] = [[]]
         perms_at: List[List[Tuple]] = [[]]
+        # the loop runs once per op of circuits of tens of millions of
+        # them: two-way maxima as comparisons, not calls of max()
         for op in self.ops:
             kind = op[0]
-            if kind == _PERM:
+            if kind <= _MUL:  # _ADD, _SUB, _MUL (after _INPUT, _CONST)
+                if kind <= _CONST:
+                    L = 0
+                else:
+                    a, b = lvl[op[2]], lvl[op[3]]
+                    L = a if a > b else b
+            elif kind == _LIN:
+                L = lvl[op[3]]
+                if op[5] != _NO:
+                    b = lvl[op[5]]
+                    L = L if L > b else b
+            elif kind == _PERM:
                 _, outs, ins = op
                 L = max(lvl[i] for i in ins)
                 for o in outs:
@@ -455,15 +491,8 @@ class CircuitBuilder:
                     ops_at.append([])
                 perms_at[L].append(op)
                 continue
-            if kind in (_ADD, _SUB, _MUL):
-                L = max(lvl[op[2]], lvl[op[3]])
-            elif kind == _LIN:
-                L = lvl[op[3]] if op[5] == _NO else max(lvl[op[3]],
-                                                        lvl[op[5]])
-            elif kind == _HINT:
+            else:  # _HINT
                 L = max((lvl[d] for d in op[3]), default=0)
-            else:
-                L = 0
             lvl[op[1]] = L
             ops_at[L].append(op)
         self._rounds = list(zip(ops_at, perms_at))

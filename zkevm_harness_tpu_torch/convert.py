@@ -524,3 +524,43 @@ def plonk_statement_digests(builder, wires, public_inputs) -> Dict:
         wiring=digest(builder.wa, builder.wb, builder.wc),
         public_gates=digest(builder.public_gates),
         assignment=digest(*wires, public_inputs))
+
+
+def builder_circuit_digests(builder, built) -> Dict:
+    """SHA-256 digests of a finalized `CircuitBuilder` of either package:
+    its gates (q-constants and wires) with its permutations and public
+    variables, and the circuit it lowered to (shape, public-input cells,
+    const columns and copy wiring). Two builders with equal digests made
+    the same circuit."""
+    q, w = builder_gates(builder)
+    gates = hashlib.sha256()
+    for arr in (q.astype("<u8"), w.astype("<i8"),
+                np.asarray([v for p in builder.perms for half in p
+                            for v in half], dtype="<i8"),
+                np.asarray(builder.pi_vars, dtype="<i8")):
+        gates.update(arr.tobytes())
+        gates.update(b"|")
+    const, wiring = built_circuit_arrays(built)
+    circuit = hashlib.sha256()
+    ir = built.ir
+    circuit.update(repr((ir.log_n, ir.num_witness, ir.num_const,
+                         [tuple(int(x) for x in c)
+                          for c in ir.public_input_cells])).encode())
+    for arr in (const.astype("<u8"), wiring.cells.astype("<i8"),
+                wiring.succ.astype("<i8")):
+        circuit.update(arr.tobytes())
+        circuit.update(b"|")
+    return dict(gates=int(q.shape[0]), permutations=len(builder.perms),
+                gates_sha256=gates.hexdigest(),
+                circuit_sha256=circuit.hexdigest())
+
+
+def field_values_sha256(values) -> str:
+    """SHA-256 of a field array's canonical u64 values, little-endian in
+    C order: a port tensor, or a JAX (lo, hi) pair as numpy planes."""
+    if isinstance(values, torch.Tensor):
+        u = gl.to_u64(values)
+    else:
+        u = pairs_to_u64(*values)
+    return hashlib.sha256(np.ascontiguousarray(u, dtype="<u8")
+                          .tobytes()).hexdigest()

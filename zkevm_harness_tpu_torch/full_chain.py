@@ -105,6 +105,7 @@ def prove_block_full_chain(code, chain_types: Sequence[int],
                            blob_kzg_settings=None,
                            blob_cfg: Optional[pk.PlonkishConfig] = None,
                            progress=None, source=None,
+                           type_workers: int = 0,
                            device=None) -> FullChainResult:
     """Prove one block through every layer. Returns the assembled tower;
     raises if any link fails verification. `source` (e.g. a
@@ -118,7 +119,8 @@ def prove_block_full_chain(code, chain_types: Sequence[int],
     it. The config used is in `stats["eip4844_<b>"]["config"]` and in each
     blob record. `compression_cfg`, `wrap` and `progress` are the knobs of
     the JAX package's CLI; `leaf_arity` splits a type's base proofs into
-    leaf chunks as `harness.run_block` does."""
+    leaf chunks as `harness.run_block` does, and `type_workers` (the
+    port's own) goes to it as it is."""
     if snark_mode not in ("pi", "binding", "full"):
         raise ValueError(f"unknown SNARK mode {snark_mode!r}")
     device = gl.resolve_device(device)
@@ -205,7 +207,8 @@ def prove_block_full_chain(code, chain_types: Sequence[int],
                                 leaf_arity=leaf_arity,
                                 block_number=block_number,
                                 eip4844_outputs=blob_outputs,
-                                eip4844_slots=eip4844_slots, device=device)
+                                eip4844_slots=eip4844_slots,
+                                type_workers=type_workers, device=device)
     say("tower proven through the DAG (blob slots verified in-scheduler)")
 
     base_proofs: Dict[int, List[pk.PlonkishProof]] = {}

@@ -131,6 +131,14 @@ STORAGE_APP_SIBLINGS = tuple(hashlib.blake2s(bytes([i])).digest()
 TOWER_GOLDEN_CONFIG = dict(rate=2, cap_size=4, num_queries=2,
                            final_fri_size=8)
 TOWER_CONFIG = dict(rate=2, cap_size=16, num_queries=50, final_fri_size=512)
+# The base types of the whole block's golden tower beyond the RAM
+# permutation (8) and ecrecover (7), which the golden tower and the card's
+# first tower covered, and storage application (10), whose six-path leaf
+# the JAX package proves on a CPU in hours: `harness.run_block(
+# whole_block(WHOLE_GOLDEN), spot_types=TOWER13_GOLDEN_TYPES, tower=True)`
+# at `TOWER_GOLDEN_CONFIG` is behind `test_artifacts/tower13_*.json`
+# (`tools/gen_tower13_golden.py`).
+TOWER13_GOLDEN_TYPES = (1, 2, 3, 4, 5, 6, 9, 11, 12, 13)
 
 
 def tower_block(isa) -> List:

@@ -90,6 +90,29 @@ def build_block_dag(recursion_queues: Dict[int, QueueSimulator],
     return tasks
 
 
+def stored_record(source, t: ProofTask):
+    """The record of task `t` in `source`, or None."""
+    if t.kind == "base":
+        return source.get_base_layer_proof(t.circuit_type, t.index)
+    if t.kind == "leaf":
+        return source.get_leaf_layer_proof(t.circuit_type, t.index)
+    if t.kind == "node":
+        return source.get_node_layer_proof(t.circuit_type, t.depth, t.index)
+    return source.get_scheduler_proof()
+
+
+def store_record(source, t: ProofTask, proof) -> None:
+    """`proof`, the record of task `t`, into `source`."""
+    if t.kind == "base":
+        source.set_base_layer_proof(proof, t.circuit_type, t.index)
+    elif t.kind == "leaf":
+        source.set_leaf_layer_proof(proof, t.circuit_type, t.index)
+    elif t.kind == "node":
+        source.set_node_layer_proof(proof, t.circuit_type, t.depth, t.index)
+    else:
+        source.set_scheduler_proof(proof)
+
+
 def run_dag(tasks: List[ProofTask], prove_fn: Callable[[ProofTask, Dict], object],
             source: Optional[InMemoryDataSource] = None,
             progress: Optional[Callable[[str], None]] = None,
@@ -106,27 +129,8 @@ def run_dag(tasks: List[ProofTask], prove_fn: Callable[[ProofTask, Dict], object
     source = source or InMemoryDataSource()
     done: Dict = {}
 
-    def store_get(t: ProofTask):
-        if t.kind == "base":
-            return source.get_base_layer_proof(t.circuit_type, t.index)
-        if t.kind == "leaf":
-            return source.get_leaf_layer_proof(t.circuit_type, t.index)
-        if t.kind == "node":
-            return source.get_node_layer_proof(t.circuit_type, t.depth, t.index)
-        return source.get_scheduler_proof()
-
-    def store_set(t: ProofTask, proof):
-        if t.kind == "base":
-            source.set_base_layer_proof(proof, t.circuit_type, t.index)
-        elif t.kind == "leaf":
-            source.set_leaf_layer_proof(proof, t.circuit_type, t.index)
-        elif t.kind == "node":
-            source.set_node_layer_proof(proof, t.circuit_type, t.depth, t.index)
-        else:
-            source.set_scheduler_proof(proof)
-
     def run_one(t: ProofTask):
-        existing = store_get(t)
+        existing = stored_record(source, t)
         if existing is not None:
             return t, existing, True
         assert all(d.key() in done for d in t.deps), "DAG order violated"
@@ -135,7 +139,7 @@ def run_dag(tasks: List[ProofTask], prove_fn: Callable[[ProofTask, Dict], object
 
     def record(t: ProofTask, proof, resumed: bool):
         if not resumed:
-            store_set(t, proof)
+            store_record(source, t, proof)
         done[t.key()] = proof
         if progress and not resumed:
             progress(f"{t.kind}[{t.circuit_type}][d{t.depth}][{t.index}] done")
