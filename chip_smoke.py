@@ -7,8 +7,8 @@
                                      # log demuxer, the hash block's hash
                                      # circuits, the whole block's 13 base
                                      # types at production geometry, then
-                                     # its full chain over the 11 types of
-                                     # its tower (1-3, 5-9, 11-13): tower,
+                                     # its full chain over the tower of all
+                                     # 13 (leaf arity 2): tower,
                                      # a blob, compression for the wrapper
                                      # and the "binding" SNARK, then mode
                                      # 1 at LDE 32 and the "pi" SNARK;
@@ -50,10 +50,11 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
  10. sorters   the 5585-cycle block's memory and log subsystem at production
                geometry (GeometryConfig() capacities, 50 queries): the
                production VKs of types 8, 11, 12, 9 and 4 equal
-               setup/setup/base_layer/vk_N.json; the block's one instance of
+               setup/setup/base_layer/vk_N.json (type 4's under its leaf
+               in `tower13`); the block's one instance of
                each of types 8, 11, 9 and 4 is decomposed (the proofs at
-               this geometry of 8, 11 and 9 are phase `tower13`'s, type
-               4's phase `block`'s); launch counters of this phase
+               this geometry are phase `tower13`'s); launch counters of
+               this phase
   11. hashes_golden  the first instance of each hash circuit of the small
                hash block (keccak 5, SHA-256 6, L1-messages hasher 13, code
                decommitter 3, decommitments sorter 2) proved on the card
@@ -63,10 +64,11 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                production geometry: the production VKs of types 2, 3, 6 and
                13 equal setup/setup/base_layer/vk_N.json (type 5's digest
                printed); every instance of types 5, 6, 13, 3 and 2
-               decomposed, the instances of 5 and 6 proved, verified,
-               public inputs checked and tampered copies rejected (since PR
-               13 types 13, 3 and 2 are proved at this geometry in phase
-               `tower13`); the digests on the public inputs (the hasher's
+               decomposed, the instance of 6 (HASHES_PROVED) proved,
+               verified, public inputs checked and tampered copies rejected
+               (types 13, 3, 2 and 5 are
+               proved at this geometry in phase `tower13`); the digests on
+               the public inputs (the hasher's
                is keccak256 of the L1 messages, the first decommitter's the
                SHA-256 in its versioned hash, the round functions' final
                accumulators in the last PI lanes); launch counters of this
@@ -80,20 +82,23 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                bodies, hash rounds, far calls, 7 ecrecover calls; 880
                cycles) through witness.oracle.create_artifacts_from_tracer at
                GeometryConfig(): every one of the 13 base types has an
-               instance; the first of each type outside the tower of phase
-               `tower13` (the log demuxer 4 and storage application 10) is
-               proved and verified at production geometry through
+               instance; the storage roots chain from the artifacts' initial
+               to their final root; storage application (type 10, depth 256,
+               BLOCK_PROVED) has the first query's read path (phase
+               `tower13` chains all 18 paths' roots) proved and verified at
+               production geometry through
                layers.prove_base_instance, its public inputs the expected
-               ones, its VK equal to the committed one
-               (setup/setup/base_layer/vk_4.json,
-               test_artifacts/vk_10_production.json); type 10 (depth 256,
-               the first query's read and write paths) proved twice to
-               equal bytes and tampered copies rejected; the storage roots
-               chain from the artifacts' initial to their final root;
-               launch counters of this phase (every instance of the other
-               types is proved in `tower13`)
+               ones, its VK equal to test_artifacts/vk_10_production.json,
+               proved twice to equal bytes and tampered copies rejected;
+               launch counters of this phase (every instance of
+               every type, the log demuxer's too, is proved in `tower13`)
   16. kernels_block  gl_mul and poseidon2_permute against their plain
                versions and timed at the new circuits' shapes
+  17-19b. the golden towers, in two processes of their own on the card
+               that run beside phases 24-31 (they time nothing, and those
+               time no kernel of the kernels line), their records printed
+               when the processes end, with `background` and the seconds
+               into their process:
   17. tower_golden  the JAX package's golden tower (the RAM permutation of
                golden.tower_block at testing geometry, rate 2, cap 4, 2
                queries) through harness.run_block(tower=True) on the card:
@@ -125,16 +130,22 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
   19b. tower13_golden  the JAX package's golden tower of the small whole
                block (golden.WHOLE_GOLDEN at testing geometry, rate 2, cap
                4, 2 queries) over types 1-6, 9 and 11-13 through
-               harness.run_block(tower=True, type_workers=10), a process a
-               type, on the card:
+               harness.run_block(tower=True) in one process on the card:
                every base, leaf, node and scheduler VK and proof and the
                scheduler's public inputs equal test_artifacts/tower13_*
-               (tools/gen_tower13_golden.py)
+               (tools/gen_tower13_golden.py); then storage application's
+               golden tower (golden.TYPE10_GOLDEN: one storage write, its
+               read and write paths at depth 4 in one leaf of arity 2, a
+               node, the scheduler) through harness.run_block(tower=True,
+               leaf_arity=2): equal to test_artifacts/tower10_*
+               (tools/gen_type10_golden.py)
   20. tower    the whole block's full chain through
-               full_chain.prove_block_full_chain at GeometryConfig(): base,
-               leaf and node proofs of the 11 types of TOWER13_TYPES (every
-               type but the log demuxer 4 and storage application 10, whose
-               leaves do not fit the run) and the scheduler at production
+               full_chain.prove_block_full_chain at GeometryConfig() and
+               leaf_arity=golden.TOWER_LEAF_ARITY (2): base, leaf and node
+               proofs of all 13 types (TOWER13_TYPES: type 10's 18 paths in
+               9 leaves and a node over them, type 3's 4 instances in 2, the
+               log demuxer's 2^23-row leaf) and the scheduler over their 13
+               slots at production
                parameters (rate 2, cap 16, 50 queries, final FRI size 512),
                the types' base, leaf and node tasks in three processes on
                the card (`type_workers`), the scheduler verifying one
@@ -146,10 +157,13 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                PLONK wrapper over its Fr VK; then a second wrap of the same
                scheduler proof, compression mode 1 at LDE 32 and the "pi"
                wrapper; each proof verified with its expected public
-               inputs; each leaf tail is its type's recursion-queue tail;
-               the scheduler proved twice to equal bytes; a tampered leaf
-               proof leaves gates of the node of type 7 unsatisfied and a
-               tampered scheduler public input fails verify; the block
+               inputs; each leaf's tail is its queue segment's tail, the
+               last leaf's its type's recursion-queue tail; the scheduler
+               proved a second time from its witness to equal bytes; a
+               tampered leaf proof leaves gates of the node of type 7
+               unsatisfied, a tampered scheduler public input fails verify,
+               and the keccak base proof (type 5) with a public input or an
+               OOD value changed is refused by its base verifier; the block
                commitment binds the blob's output hash; mode 1's public
                inputs are the scheduler's VK and public inputs, and with
                one of the scheduler's public inputs changed the STARK
@@ -157,18 +171,25 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
                packs the scheduler's and a wrong one (or another
                for-wrapper VK) is refused; with --out, the for-wrapper
                proof, its VK and a summary written into fw_production/
-               beside that file; the seconds, peak memory and launches of
+               beside that file, and the first production leaf of types 10
+               and 4 into leaf_production/; the seconds, peak memory and
+               launches of
                the scheduler and of every wrap proof; with --profile the
                chain once more under the profiler for the device's idle
                share
   20b. tower13  that chain's tower task by task: per base, leaf and node
                proof of each type and for the scheduler its shape, the
                seconds of synthesis, finalize, fill, setup, prove, verify
-               and of waiting for the card, its peak memory and its K1 and
-               K2 launches, beside the card's name and power limit; the
-               base VK under each leaf equal to the committed production
-               VK; a tampered scheduler public input refused; the deferred
-               types and why
+               and of waiting for the card, its peak memory, its K1 and K2
+               launches and its process's peak host RSS, beside the card's
+               name and power limit; per leaf the running peak memory at
+               the end of each prover stage; the largest leaf (the log
+               demuxer's 2^23 x 48) apart and the 2^22-row leaves' peaks;
+               each worker's types and peak RSS; each type's leaves cover
+               its instances and its node its leaves; the base VK under
+               each leaf equal to the committed production VK; type 10's
+               18 path proofs chain the storage roots; a tampered scheduler
+               public input refused
   21. eip4844  the blob circuit at full width (4,096 elements, u8 limbs)
                at the chain's base config, elements and point from a seed:
                setup, prove, verify with the expected public inputs; the
@@ -177,7 +198,9 @@ JAX and nothing of the JAX package. Phases, one JSON object per line:
   22. kernels_tower, kernels_tower13, kernels_wrap  gl_mul and
                poseidon2_permute against their plain versions and timed at
                the tower's shapes, at each new leaf shape of `tower13` (its
-               columns over its rows; the widest leaf's commitment leaves),
+               columns over its rows, and the largest leaf's over its
+               commitment domain: (48, 2^23) and (48, 2^24); that leaf's
+               2^24 commitment leaves for the permutation),
                at compression mode 1's LDE and at the 4,096-element blob
                circuit's
   23. kernels_fw  K3 (bn254_hash_rows, bn254_hash_pairs) against its plain
@@ -255,6 +278,7 @@ import copy
 import dataclasses
 import hashlib
 import json
+import multiprocessing
 import os
 import resource
 import subprocess
@@ -284,6 +308,14 @@ def pi_bumped(proof, k=0):
     """A copy of `proof` with its public input k changed."""
     bad = copy.deepcopy(proof)
     bad.public_inputs[k] = (int(bad.public_inputs[k]) + 1) % GOLDILOCKS_P
+    return bad
+
+
+def ood_bumped(proof):
+    """A copy of `proof` with one witness OOD value changed."""
+    bad = copy.deepcopy(proof)
+    c0, c1 = bad.ood_witness[3]
+    bad.ood_witness[3] = ((int(c0) + 1) % GOLDILOCKS_P, c1)
     return bad
 
 
@@ -406,10 +438,12 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     """Phases `block_golden`, `block` and `kernels_block`: the golden
     ecrecover (7) and storage-application (10) proofs on the card, then one
     whole block through `create_artifacts_from_tracer` at `GeometryConfig()`
-    with every base type's instances counted and one instance of each type
-    outside `TOWER13_TYPES` (4, 10) proved and verified, then K1 and K2
-    against their plain versions and timed at the new circuits' shapes.
-    Returns (the block path's launches, its kernel timings)."""
+    with every base type's instances counted, the storage roots chained and
+    the first storage query's read and write paths (`BLOCK_PROVED`) proved,
+    verified, proved again and tampered (every instance of every type is
+    proved in the tower), then K1 and K2 against their plain versions and
+    timed at the new circuits' shapes. Returns (the block path's launches,
+    its kernel timings)."""
     import torch
 
     from zkevm_harness_tpu_torch import golden
@@ -548,7 +582,7 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     per_type = {}
     with ly.engine_override(bcfg):
         for ctype in (7, 10, 1, 2, 3, 4, 5, 6, 8, 9, 11, 12, 13):
-            if ctype in TOWER13_TYPES:
+            if ctype not in BLOCK_PROVED:
                 # every instance proved, and its VK checked, in `tower13`
                 per_type[ctype] = {"instances": counts[ctype],
                                    "proved_in": "tower13"}
@@ -578,8 +612,9 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                     raise SystemExit(f"block: the production VK of type "
                                      f"{ctype} differs from {vk_file}")
             rec["vk_equal"] = os.path.relpath(vk_file, REPO_DIR)
-            # type 10: the first query's read and write paths
-            todo = insts[:2] if ctype == 10 else insts[:1]
+            # type 10: the first query's read path (phase `tower13` chains
+            # every path's root)
+            todo = insts[:1]
             for k, inst in enumerate(todo):
                 prove = lambda: ly.prove_base_instance(  # noqa: E731
                     ctype, inst, ch, cap, device=dev)
@@ -709,37 +744,18 @@ def block_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     return launches_block, timing_block
 
 
-def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
-    """Phases `tower_golden`, `tower` and `kernels_tower`: the golden tower
-    through the port's `harness.run_block(tower=True)` on the card, equal to
-    the JAX package's bytes; then the whole block's aggregation tower at
-    production parameters (base, leaf, node and scheduler proofs of types 8
-    and 7, each verified); then K1 and K2 against their plain versions and
-    timed at the tower's shapes. Returns (the tower path's launches, its
-    kernel timings)."""
-    import numpy as np
-    import torch
-
-    from zkevm_harness_tpu_torch import full_chain as fc
+def golden_tower_phases(dev, phase):
+    """Phases `tower_golden`, `wrap_golden` and `fw_golden`: the golden
+    tower of type 8 through the port's `harness.run_block(tower=True)` on
+    the card, equal to the JAX package's bytes, and the compression, SNARK,
+    blob and for-wrapper goldens over it. Returns fw_golden's launches."""
     from zkevm_harness_tpu_torch import golden, harness
-    from zkevm_harness_tpu_torch.circuits import node_circuit as nc
-    from zkevm_harness_tpu_torch.circuits import scheduler_circuit as sc_circ
-    from zkevm_harness_tpu_torch.circuits.types import (GeometryConfig,
-                                                        leaf_for)
-    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
-    from zkevm_harness_tpu_torch.ops import goldilocks as gl
-    from zkevm_harness_tpu_torch.prover import compression as cmp
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
-    from zkevm_harness_tpu_torch.utils import kzg, native, serde, tracing
-    from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
+    from zkevm_harness_tpu_torch.utils import native, serde
     from zkevm_harness_tpu_torch.vm import isa
 
-    P = gl.P
-
-    def golden_json(name):
-        with open(os.path.join(GOLDEN_DIR, name)) as f:
-            return json.load(f)
+    golden_json = _golden_json
 
     def rounded(stats):
         return {k: (round(v, 3) if isinstance(v, float) else v)
@@ -783,10 +799,47 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     wrap_golden_phase(dev, phase, gres, gcfg, golden_json, rounded)
     launches_fw = fw_golden_phase(dev, phase, gres, gcfg, golden_json,
                                   rounded)
-    del gres, gsrc
-    ly._SETUP_CACHE.clear()
-    torch.cuda.empty_cache()
-    tower13_golden_phase(dev, phase)
+    return launches_fw
+
+
+def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
+    """Phases `tower`, `tower13`, `eip4844` and the kernel phases after
+    them: the whole block's full chain at production parameters (base,
+    leaf and node proofs of all 13 types, the scheduler, the wrap, each
+    verified); then K1 and K2 (and K3) against their plain versions and
+    timed at the chain's shapes. Returns (the paths' launches, their
+    kernel timings)."""
+    import numpy as np
+    import torch
+
+    from zkevm_harness_tpu_torch import full_chain as fc
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.circuits import node_circuit as nc
+    from zkevm_harness_tpu_torch.circuits import scheduler_circuit as sc_circ
+    from zkevm_harness_tpu_torch.circuits.types import (GeometryConfig,
+                                                        leaf_for)
+    from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
+    from zkevm_harness_tpu_torch.ops import goldilocks as gl
+    from zkevm_harness_tpu_torch.prover import compression as cmp
+    from zkevm_harness_tpu_torch.prover import layers as ly
+    from zkevm_harness_tpu_torch.prover import plonkish as pk
+    from zkevm_harness_tpu_torch.prover import scheduler as sch
+    from zkevm_harness_tpu_torch.utils import kzg, native, serde, tracing
+    from zkevm_harness_tpu_torch.utils import snark_wrapper as sw
+    from zkevm_harness_tpu_torch.vm import isa
+    from zkevm_harness_tpu_torch.witness import oracle
+
+    P = gl.P
+
+    def rounded(stats):
+        return {k: (round(v, 3) if isinstance(v, float) else v)
+                for k, v in stats.items()}
+
+    def task_name(key):
+        kind, ctype, depth, index = key
+        if kind == "leaf":
+            ctype -= 2  # the base type the leaf aggregates
+        return f"{kind}_{ctype}" if kind != "scheduler" else kind
 
     # -- tower: the whole block's full chain at production parameters -------
     bcfg = pk.PlonkishConfig(**golden.TOWER_CONFIG)
@@ -794,8 +847,8 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     code = golden.whole_block(isa, **golden.WHOLE_BLOCK)
     contracts = dict(golden.hash_callees(isa,
                                          golden.WHOLE_BLOCK["callee_reps"]))
-    # the chain's tower is the whole block's over every type that fits the
-    # run (phase `tower13` reports it task by task)
+    # the chain's tower is the whole block's over all 13 types (phase
+    # `tower13` reports it task by task)
     spot = TOWER13_TYPES
     settings = kzg.KzgSettings.testing(16)
     blob = bytes(np.random.default_rng(4844).integers(
@@ -812,6 +865,7 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                 recursion_cfg=bcfg, compression_layers=1,
                 contracts=contracts, for_wrapper=True, snark_mode="binding",
                 blobs=[blob], blob_kzg_settings=settings, blob_cfg=blob_cfg,
+                leaf_arity=golden.TOWER_LEAF_ARITY,
                 type_workers=TOWER13_WORKERS, device=dev)
 
     ck.reset_launches()
@@ -832,25 +886,33 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
         raise SystemExit(f"full chain: a native MSM did not run: {msm_runs}")
     res = chain.block
     src, rigs = res.source, res.recursion_rigs
+    # every base, leaf and node task of the chain's DAG holds a real record,
+    # each leaf's tail is its queue segment's, the last its type's queue's
+    last_tail = {}
+    for task in tower_dag(res):
+        if task.kind == "scheduler":
+            continue
+        rec = sch.stored_record(src, task)
+        if not rec or not rec.get("real"):
+            raise SystemExit(f"tower: no real record of task {task.key()}")
+        if task.kind == "leaf":
+            tail = [int(v) for v in rec["proof"].public_inputs[-12:]]
+            if tail != [int(v) % P for v in task.payload.queue_tail]:
+                raise SystemExit(f"tower: the tail of leaf {task.key()} is "
+                                 "not its queue segment's")
+            last_tail[task.payload.base_circuit_type] = tail
     for t in spot:
-        recs = {"base": src.get_base_layer_proof(t, 0),
-                "leaf": src.get_leaf_layer_proof(int(leaf_for(t)), 0),
-                "node": src.get_node_layer_proof(t, 0, 0)}
-        for kind, rec in recs.items():
-            if not rec or not rec.get("real"):
-                raise SystemExit(f"tower: no real {kind} proof of type {t}")
-        tail = [int(v) % P for v in res.artifacts.recursion_queues[t].tail]
-        if [int(v) for v in recs["leaf"]["proof"].public_inputs[-12:]] != \
-                tail:
-            raise SystemExit(f"tower: the leaf tail of type {t} is not its "
-                             "recursion-queue tail")
+        if last_tail.get(t) != [int(v) % P for v in
+                                res.artifacts.recursion_queues[t].tail]:
+            raise SystemExit(f"tower: the last leaf's tail of type {t} is "
+                             "not its recursion-queue tail")
     srec = src.get_scheduler_proof()
     if not srec or not srec.get("real") or srec["types"] != sorted(spot) \
             or srec["num_blob_slots"] != 1:
         raise SystemExit("tower: no real scheduler proof with the types' "
                          "slots and one blob slot")
-    # the scheduler proved again from the same witness: the same bytes
     sb, slay, sbuilt, ssetup, sW = rigs[("scheduler_witness",)]
+    # the scheduler proved again from the same witness: the same bytes
     again_t = time.time()
     again = pk.prove(sbuilt.ir, ssetup, sW, bcfg, device=dev)
     torch.cuda.synchronize()
@@ -958,6 +1020,28 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                           ("fw_production_summary.json", summary)):
             with open(os.path.join(out_dir, name), "w") as f:
                 json.dump(obj, f)
+        # the first production leaf of types 10 and 4, for the JAX
+        # package's verifier over the IR of its builder shape
+        # (tests/test_torch_tower13.py, `slow`)
+        leaf_dir = os.path.join(os.path.dirname(os.path.abspath(args.out)),
+                                "leaf_production")
+        os.makedirs(leaf_dir, exist_ok=True)
+        for t in LEAF_PRODUCTION_TYPES:
+            lrec = src.get_leaf_layer_proof(int(leaf_for(t)), 0)
+            lir = rigs[("leaf_final", t)][0]
+            summary = dict(
+                type=t, index=0, arity=lrec["arity"],
+                num_real=lrec["num_real"], block=golden.WHOLE_BLOCK,
+                leaf_arity=golden.TOWER_LEAF_ARITY,
+                config=dataclasses.asdict(bcfg), shape=builder_shape(lir),
+                public_inputs=[int(v) for v in lrec["proof"].public_inputs])
+            for name, obj in (("vk", [int(v) for v in lrec["vk"]]),
+                              ("proof", serde.proof_to_json(lrec["proof"])),
+                              ("summary", summary)):
+                with open(os.path.join(
+                        leaf_dir, f"leaf{t}_production_{name}.json"),
+                        "w") as f:
+                    json.dump(obj, f)
     del fw
     # the second wrap from the same scheduler proof: compression mode 1 at
     # LDE 32 and the "pi" SNARK, as full_chain proves them without
@@ -1000,9 +1084,18 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
         "snark_other_pi_rejected": not sw.verify_wrapped_proof(
             wsetup.vk, pi_proof,
             expected_scheduler_pi=[(v + 1) % P for v in sched_pi])})
+    # the tower's keccak base proof (type 5, verified in its worker) with a
+    # public input or an OOD value changed is refused by its base verifier
+    insts5, ch5, cap5 = oracle.block_payloads(res.artifacts, geo)[5]
+    base5 = src.get_base_layer_proof(5, 0)["proof"]
+    with ly.engine_override(bcfg):
+        base5_ok = [ly.verify_base_instance(5, insts5[0], ch5, cap5, pr,
+                                            device=dev)
+                    for pr in (pi_bumped(base5), ood_bumped(base5))]
     tamper = {"leaf_under_node": len(honest) == 0 and len(broken) > 0,
               "scheduler_public_input": not pk.verify(
-                  sbuilt.ir, ssetup.vk(), bad_sched, bcfg, device=dev)}
+                  sbuilt.ir, ssetup.vk(), bad_sched, bcfg, device=dev),
+              "keccak_base": base5_ok == [False, False]}
     if not all(tamper.values()) or not all(wrap.values()):
         raise SystemExit(f"tower: a check of the chain failed: {tamper} "
                          f"{wrap}")
@@ -1027,11 +1120,11 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
                      for t, m in res.circuit_makers.items()},
           timings={k: round(v, 3) for k, v in res.timings.items()},
           chain_s=round(chain_s, 3), tasks=tasks, wrap_tasks=wrap_stats,
+          scheduler_prove_warm_s=round(sched_warm_s, 3),
+          scheduler_second_proof_equal=True,
           pi_wrap_s=round(pi_wrap_s, 3), pi_wrap_launches=launches_pi_wrap,
           scheduler_pi=sched_pi, snark_public_input=str(
               chain.final["snark_public_input"]),
-          scheduler_prove_warm_s=round(sched_warm_s, 3),
-          scheduler_second_proof_equal=True,
           leaf_tails_equal_queue_tails=True,
           unsatisfied_gates_tampered_leaf=len(broken),
           commitment_binds_blob=commitment, wrap_checks=wrap,
@@ -1148,29 +1241,27 @@ def tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms, errs):
     timing_fw = kernels_fw_phase(dev, phase, rand_field, check_equal,
                                  cuda_ms, errs, mode1_shape)
     paths = {"full_chain": launches_tower, "pi_wrap": launches_pi_wrap,
-             "fw_golden": launches_fw, "eip4844": launches_blob}
+             "eip4844": launches_blob}
     return paths, timing_tower, timing_wrap, timing_fw, timing_t13
 
 
-# The base types of phase `tower13`: every type of the whole block whose
-# leaf fits the script's time limit, the narrow ones first. The others wait
-# for the next slice; PERF.md (section 4) and ROADMAP.md (A'.2) give their
-# leaves' measured host seconds.
-TOWER13_TYPES = (1, 2, 3, 5, 6, 7, 8, 9, 11, 12, 13)
+# The base types of phase `tower13`: all 13 of the whole block, at the
+# JAX package's `leaf_arity` `golden.TOWER_LEAF_ARITY` (type 10's 18 paths
+# in 9 leaves, type 3's 4 instances in 2).
+TOWER13_TYPES = tuple(range(1, 14))
 # processes proving the types' base, leaf and node tasks side by side
 # (`harness.run_block(type_workers=...)`): the host's synthesis, the larger
 # part of a leaf's time, runs three at a time on the machine's cores
 TOWER13_WORKERS = 3
-# the hash circuits phase `hashes` proves itself; phase `tower13` proves
-# the others (2, 3, 13) at that geometry
-HASHES_PROVED = (5, 6)
-TOWER13_DEFERRED = {
-    4: "log demuxer: its leaf (2^23 x 48, 37,975,597 gates) ran out of the "
-       "card's memory in the prove, after 148 s of host synthesis, "
-       "finalize and fill (tools/leaf_probe.py)",
-    10: "storage application: 18 paths make one leaf of arity 18, about "
-        "183 M gates (10,176,445 a path): some 575 s of host work and "
-        "210 GB of host memory"}
+# the hash circuit phase `hashes` proves itself; phase `tower13` proves
+# the others (2, 3, 5, 13) at that geometry
+HASHES_PROVED = (6,)
+# the base type phase `block` proves itself: the first storage query's
+# read path, proved twice and tampered, its root the initial one
+BLOCK_PROVED = (10,)
+# the types whose first production leaf `--out` writes into
+# leaf_production/ (test_artifacts/leaf{10,4}_production_*)
+LEAF_PRODUCTION_TYPES = (10, 4)
 
 
 @contextlib.contextmanager
@@ -1188,6 +1279,28 @@ def _worker_allocator():
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def builder_shape(ir):
+    """The `CircuitBuilder.ir_shape()` of a recursion circuit's IR: its
+    PLONK slots and Poseidon2 tiles are its two gate parts' counts."""
+    slots, *rest = ir.gate_part_counts
+    return dict(slots=slots, tiles=rest[0] // 12 if rest else 0,
+                log_n=ir.log_n, num_witness=ir.num_witness,
+                num_const=ir.num_const,
+                public_input_cells=[list(c) for c in ir.public_input_cells],
+                copy_chunk=ir.copy_chunk)
+
+
+def tower_dag(res):
+    """The proof DAG of a `harness.run_block` result at the tower's leaf
+    arity."""
+    from zkevm_harness_tpu_torch import golden
+    from zkevm_harness_tpu_torch.prover import scheduler as sch
+    return sch.build_block_dag(
+        {t: m.queue for t, m in res.circuit_makers.items()},
+        {t: a.num_instances for t, a in res.artifacts.per_circuit.items()},
+        leaf_arity=golden.TOWER_LEAF_ARITY)
 
 
 def rand_field_on(dev, shape):
@@ -1208,13 +1321,16 @@ def _golden_json(name):
 
 def tower13_golden_phase(dev, phase):
     """Phase `tower13_golden`: the JAX package's golden tower of the small
-    whole block over `golden.TOWER13_GOLDEN_TYPES`, made on the card by
+    whole block over `golden.TOWER13_GOLDEN_TYPES`, and storage
+    application's golden tower (`golden.TYPE10_GOLDEN`: two depth-4 paths
+    in one leaf of arity 2), made on the card by
     `harness.run_block(tower=True)`: every base, leaf, node and scheduler
-    VK and proof, and the scheduler's public inputs, equal its bytes."""
+    VK and proof, and the schedulers' public inputs, equal its bytes."""
     import torch
 
     from zkevm_harness_tpu_torch import golden, harness
-    from zkevm_harness_tpu_torch.circuits.types import leaf_for
+    from zkevm_harness_tpu_torch.circuits.types import (leaf_for,
+                                                        testing_geometry)
     from zkevm_harness_tpu_torch.prover import layers as ly
     from zkevm_harness_tpu_torch.prover import plonkish as pk
     from zkevm_harness_tpu_torch.utils import serde
@@ -1231,14 +1347,14 @@ def tower13_golden_phase(dev, phase):
     gtypes = tuple(golden.TOWER13_GOLDEN_TYPES)
     contracts = dict(golden.hash_callees(
         isa, golden.WHOLE_GOLDEN["callee_reps"]))
-    with _worker_allocator(), ly.engine_override(gcfg):
+    # the golden circuits are small (testing geometry, 2 queries): proved
+    # in this process, without ten processes to start and switch between
+    # on the card
+    with ly.engine_override(gcfg):
         gres = harness.run_block(
             golden.whole_block(isa, **golden.WHOLE_GOLDEN),
             prove_mode="spot", spot_types=gtypes, contracts=contracts,
-            tower=True, recursion_cfg=gcfg,
-            # the golden circuits are small (testing geometry, 2 queries):
-            # a process a type
-            type_workers=len(gtypes), device=dev)
+            tower=True, recursion_cfg=gcfg, device=dev)
     gsrc = gres.source
     want = golden_json("tower13_summary.json")
     compared = 0
@@ -1267,30 +1383,104 @@ def tower13_golden_phase(dev, phase):
             [int(v) for v in srec["scheduler_pi"]] != want["scheduler_pi"]:
         raise SystemExit("tower13_golden: the scheduler's VK, proof or "
                          "public inputs differ from the golden JSON")
+    whole_s = time.time() - t0
+    del gres, gsrc, srec
+    ly._SETUP_CACHE.clear()
+    torch.cuda.empty_cache()
+    # storage application's golden tower at the JAX package's leaf_arity
+    t1 = time.time()
+    geo = dataclasses.replace(testing_geometry(),
+                              storage_tree_depth=golden.TYPE10_GOLDEN["depth"])
+    with ly.engine_override(gcfg):
+        tres = harness.run_block(
+            golden.type10_block(isa), geometry=geo, prove_mode="spot",
+            spot_types=(10,), tower=True, recursion_cfg=gcfg,
+            leaf_arity=golden.TYPE10_GOLDEN["leaf_arity"], device=dev)
+    tsrc = tres.source
+    want10 = golden_json("tower10_summary.json")
+    bases = [tsrc.get_base_layer_proof(10, i)["proof"]
+             for i in range(want10["leaf"]["num_real"])]
+    if [as_json(p) for p in bases] != golden_json("tower10_base_proofs.json"):
+        raise SystemExit("tower13_golden: the type-10 path proofs differ "
+                         "from the golden JSON")
+    for kind, rec in (("leaf", tsrc.get_leaf_layer_proof(int(leaf_for(10)),
+                                                         0)),
+                      ("node", tsrc.get_node_layer_proof(10, 0, 0)),
+                      ("scheduler", tsrc.get_scheduler_proof())):
+        if not rec or not rec.get("real") or \
+                [int(v) for v in rec["vk"]] != golden_json(
+                    f"tower10_{kind}_vk.json") or \
+                as_json(rec["proof"]) != golden_json(
+                    f"tower10_{kind}_proof.json"):
+            raise SystemExit(f"tower13_golden: the type-10 {kind} VK or "
+                             "proof differs from the golden JSON")
+    if [int(v) for v in tsrc.get_scheduler_proof()["scheduler_pi"]] != \
+            want10["scheduler_pi"]:
+        raise SystemExit("tower13_golden: the type-10 tower's scheduler "
+                         "public inputs differ from the golden JSON")
     phase("tower13_golden", config=golden.TOWER_GOLDEN_CONFIG,
           block=golden.WHOLE_GOLDEN, spot_types=list(gtypes),
           proofs_equal=compared + 1, vk_equal=True, proof_equal=True,
-          scheduler_pi_equal=True, verify=True,
-          total_s=round(time.time() - t0, 3))
-    del gres, gsrc, srec
+          scheduler_pi_equal=True, verify=True, total_s=round(whole_s, 3),
+          type10={"golden": golden.TYPE10_GOLDEN,
+                  "proofs_equal": len(bases) + 3,
+                  "leaf_arity": want10["leaf"]["arity"],
+                  "total_s": round(time.time() - t1, 3)})
+    del tres, tsrc
     ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
 
 
+# The golden phases that run in processes of their own beside the CLI and
+# mesh phases (they time nothing; what they check is bytes): name -> the
+# function of (device, phase) that runs them
+BACKGROUND_GOLDENS = {"golden_tower": golden_tower_phases,
+                      "tower13_golden": tower13_golden_phase}
+
+
+def _background_golden(name):
+    """A spawned process's run of `BACKGROUND_GOLDENS[name]` on the card:
+    (its phase records, what the function returned, the message it stopped
+    with or None)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.time()
+    recs = []
+
+    def phase(pname, **fields):
+        recs.append({"phase": pname, "process_s": round(time.time() - t0, 1),
+                     **fields})
+
+    try:
+        out = BACKGROUND_GOLDENS[name](dev, phase)
+    except SystemExit as e:
+        return recs, None, str(e)
+    return recs, out, None
+
+
 def tower13_phase(dev, phase, res, wall_s):
     """Phase `tower13`: the whole block's tower at production parameters
-    over `TOWER13_TYPES`, as the full chain of phase `tower` proved it
-    (`res`, its `harness.run_block` result): every instance's base proof, a
-    leaf and a node of each type, the scheduler over their slots (and the
-    blob's), each verified with its expected public inputs in the run; here
-    each leaf's tail is its recursion-queue tail, the base VK under each
-    leaf equals the committed production VK, and a tampered scheduler
-    public input is refused. Prints per task its shape, the seconds of
-    synthesis, finalize, fill, setup, prove, verify and of waiting for the
-    card, its peak memory and its K1 and K2 launches, and their sums over
-    the tower. Returns the new leaves' (columns, log rows)."""
+    over `TOWER13_TYPES` at `golden.TOWER_LEAF_ARITY`, as the full chain of
+    phase `tower` proved it (`res`, its `harness.run_block` result): every
+    instance's base proof, each type's leaves over its instances a chunk at
+    a time and a node over them, the scheduler over the types' slots (and
+    the blob's), each verified with its expected public inputs in the run;
+    here each type's leaves cover all its instances and its node all its
+    leaves, the base VK under each leaf equals the committed production
+    VK, type 10's path proofs chain the storage roots from the artifacts'
+    initial root to their final one, and a tampered scheduler public input
+    is refused. Prints per task its shape, the seconds of synthesis,
+    finalize, fill, setup, prove, verify and of waiting for the card, its
+    peak memory, its K1 and K2 launches and its process's peak host RSS;
+    per leaf the running peak at the end of each prover stage; the largest
+    leaf apart, each worker's peak RSS, and the sums over the tower.
+    Returns the leaves' (columns, log rows)."""
     from zkevm_harness_tpu_torch import golden
-    from zkevm_harness_tpu_torch.circuits.types import leaf_for
+    from zkevm_harness_tpu_torch.circuits import \
+        storage_application_circuit as sappcirc
+    from zkevm_harness_tpu_torch.circuits.types import (GeometryConfig,
+                                                        leaf_for)
     from zkevm_harness_tpu_torch.ops import goldilocks as gl
     from zkevm_harness_tpu_torch.prover import plonkish as pk
 
@@ -1303,37 +1493,55 @@ def tower13_phase(dev, phase, res, wall_s):
             ctype -= 2  # the base type the leaf aggregates
         if kind == "scheduler":
             return kind
-        return f"{kind}_{ctype}" + (f"_{index}" if kind == "base" else "")
+        return f"{kind}_{ctype}" + (f"_{index}" if kind == "base" or index
+                                    else "")
 
     src, rigs = res.source, res.recursion_rigs
     instances = {t: len(m.instances) for t, m in res.circuit_makers.items()}
-    vks = {}
+    leaves = {}
+    for task in tower_dag(res):
+        if task.kind == "leaf":
+            leaves.setdefault(task.payload.base_circuit_type, []).append(task)
+    vks, shapes = {}, {}
     for t in TOWER13_TYPES:
         for i in range(instances[t]):
             rec = src.get_base_layer_proof(t, i)
             if not rec or not rec.get("real"):
                 raise SystemExit(f"tower13: no real base proof {i} of type "
                                  f"{t}")
-        leaf = src.get_leaf_layer_proof(int(leaf_for(t)), 0)
+        recs = [src.get_leaf_layer_proof(int(leaf_for(t)), task.index)
+                for task in leaves[t]]
         node = src.get_node_layer_proof(t, 0, 0)
-        if not leaf or not leaf.get("real") or not node or \
-                not node.get("real") or leaf["num_real"] != instances[t]:
-            raise SystemExit(f"tower13: no real leaf over every instance, or "
-                             f"no real node, of type {t}")
-        tail = [int(v) % P for v in res.artifacts.recursion_queues[t].tail]
-        if [int(v) for v in leaf["proof"].public_inputs[-12:]] != tail:
-            raise SystemExit(f"tower13: the leaf tail of type {t} is not its "
-                             "recursion-queue tail")
-        # the leaf's public inputs open with the base VK it verified
+        if not all(r and r.get("real") for r in recs) or \
+                sum(r["num_real"] for r in recs) != instances[t] or \
+                not node or not node.get("real") or \
+                node["arity"] != len(recs):
+            raise SystemExit(f"tower13: the leaves of type {t} do not cover "
+                             "its instances, or its node not its leaves")
+        # each leaf's public inputs open with the base VK it verified
         # in-circuit: the committed production VK of the type
-        vk = [int(v) for v in leaf["proof"].public_inputs[:-16]]
         path = os.path.join(PROD_VK_DIR, f"vk_{t}.json")
         if not os.path.exists(path):
             path = os.path.join(GOLDEN_DIR, f"vk_{t}_production.json")
-        if vk != _golden_json(path):
-            raise SystemExit(f"tower13: the base VK under the leaf of type "
-                             f"{t} differs from {path}")
+        want = _golden_json(path)
+        for r in recs:
+            if [int(v) for v in r["proof"].public_inputs[:-16]] != want:
+                raise SystemExit(f"tower13: the base VK under a leaf of type "
+                                 f"{t} differs from {path}")
         vks[t] = os.path.relpath(path, REPO_DIR)
+        shapes[t] = {"instances": instances[t], "leaves": len(recs),
+                     "leaf_arity": recs[0]["arity"],
+                     "node_arity": node["arity"]}
+    # type 10: query k's read path opens root k, its write path gives root
+    # k + 1; the first is the artifacts' initial root, the last their final
+    sa = res.artifacts.storage_application
+    g10 = sappcirc.PathGeometry(depth=GeometryConfig().storage_tree_depth)
+    roots = [sappcirc.root_bytes(g10, src.get_base_layer_proof(10, i)[
+        "proof"].public_inputs) for i in range(instances[10])]
+    if roots[0::2] != [sa.initial_root] + roots[1::2][:-1] or \
+            roots[-1] != sa.final_root:
+        raise SystemExit("tower13: the storage paths' roots do not chain "
+                         "from the initial to the final root")
     srec = src.get_scheduler_proof()
     if not srec or not srec.get("real") or \
             srec["types"] != sorted(TOWER13_TYPES):
@@ -1347,8 +1555,8 @@ def tower13_phase(dev, phase, res, wall_s):
                          "accepted")
     keys = ("log_n", "width", "gates", "arity", "synthesis_s", "finalize_s",
             "fill_s", "setup_s", "prove_s", "verify_s", "device_wait_s",
-            "max_memory_allocated")
-    tasks, launches = {}, {}
+            "max_memory_allocated", "host_max_rss", "pid", "stage_peaks")
+    tasks, launches, workers = {}, {}, {}
     for key, st in res.tower_stats.items():
         row = {k: (round(st[k], 3) if isinstance(st[k], float) else st[k])
                for k in keys if k in st}
@@ -1357,37 +1565,49 @@ def tower13_phase(dev, phase, res, wall_s):
         tasks[task_name(key)] = row
         for k, v in st["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        w = workers.setdefault(st["pid"], {"types": [], "host_max_rss": 0})
+        t = key[1] - 2 if key[0] == "leaf" else key[1]
+        if key[0] != "scheduler" and t not in w["types"]:
+            w["types"].append(t)
+        w["host_max_rss"] = max(w["host_max_rss"], st["host_max_rss"])
     for name in ("gl_mul", "poseidon2_permute"):
         if launches[name] <= 0:
             raise SystemExit(f"tower13 launched {name} no time")
+    leaf_rows = {k: v for k, v in tasks.items() if k.startswith("leaf_")}
+    top = max(leaf_rows, key=lambda k: (leaf_rows[k]["log_n"],
+                                        leaf_rows[k]["width"]))
     phase("tower13", nvidia_smi=nvidia_smi_line(), block=golden.WHOLE_BLOCK,
           config=golden.TOWER_CONFIG, spot_types=list(TOWER13_TYPES),
+          leaf_arity=golden.TOWER_LEAF_ARITY,
           type_workers=TOWER13_WORKERS,
-          # host memory: this process's peak, and the largest of the ended
-          # child processes' (the workers; before them only nvcc's)
+          # host memory: this process's peak, each process's at the end of
+          # its last task (the scheduler's process is this one)
           host_max_rss={"script": resource.getrusage(
-              resource.RUSAGE_SELF).ru_maxrss * 1024,
-              "largest_worker": resource.getrusage(
-                  resource.RUSAGE_CHILDREN).ru_maxrss * 1024},
-          deferred={str(t): why for t, why in TOWER13_DEFERRED.items()},
-          instances=instances, cycles=res.cycles,
+              resource.RUSAGE_SELF).ru_maxrss * 1024},
+          workers={str(pid): w for pid, w in workers.items()},
+          per_type=shapes, instances=instances, cycles=res.cycles,
           timings={k: round(v, 3) for k, v in res.timings.items()},
           wall_s=round(wall_s, 3), tasks=tasks,
+          largest_leaf={"task": top, **leaf_rows[top]},
+          peak_2e22_leaves={k: v["max_memory_allocated"]
+                            for k, v in leaf_rows.items()
+                            if v["log_n"] == 22},
           scheduler_pi=[int(v) for v in srec["scheduler_pi"]],
           base_vk_equal=vks, leaf_tails_equal_queue_tails=True,
-          scheduler_tampered_rejected=True, launches=launches)
-    leaf_shapes = sorted({(st["width"], st["log_n"])
-                          for k, st in res.tower_stats.items()
-                          if k[0] == "leaf"} - {(48, 19)})
-    return leaf_shapes
+          storage_roots_chained=True, scheduler_tampered_rejected=True,
+          launches=launches)
+    return sorted({(st["width"], st["log_n"])
+                   for k, st in res.tower_stats.items()
+                   if k[0] == "leaf"} - {(48, 19)})
 
 
 def kernels_tower13_phase(dev, phase, leaf_shapes, check_equal, cuda_ms,
                           errs):
     """Phase `kernels_tower13`: K1 and K2 against their plain versions and
     timed at the new leaves' shapes: each leaf shape's columns over its
-    rows (a coset of its quotient) for the multiply, and the widest leaf's
-    rate-2 commitment leaves for the permutation. Returns the timings."""
+    rows (a coset of its quotient) and the largest leaf's columns over its
+    rate-2 commitment domain (its LDE) for the multiply, and that leaf's
+    commitment leaves for the permutation. Returns the timings."""
     import torch
 
     from zkevm_harness_tpu_torch.ops import cuda_kernels as ck
@@ -1397,28 +1617,45 @@ def kernels_tower13_phase(dev, phase, leaf_shapes, check_equal, cuda_ms,
         return rand_field_on(dev, shape)
 
     timing = {}
-    for width, log_n in leaf_shapes:
+    width, log_n = max(leaf_shapes, key=lambda wl: (wl[1], wl[0]))
+    lde = (width, log_n + 1)
+    for width, log_n in leaf_shapes + [lde]:
         shape = (width, 1 << log_n)
         ta, tb = rand_field(shape), rand_field(shape)
-        errs["gl_mul"] = max(errs["gl_mul"], check_equal(
-            f"gl_mul leaf {shape}", ck.gl_mul(ta, tb),
-            ck.gl_mul_plain(ta, tb)))
-        timing[f"gl_mul_leaf_{width}x2^{log_n}"] = {
+        # the plain version's dozen temporaries of the operands' size do
+        # not fit the card beside a 2^24-point LDE's operands: it runs on
+        # four blocks of columns there, checked and timed block by block
+        step = -(-width // 4) if (width, log_n) == lde else width
+        got = ck.gl_mul(ta, tb)
+        for j in range(0, width, step):
+            errs["gl_mul"] = max(errs["gl_mul"], check_equal(
+                f"gl_mul leaf {shape}", got[j:j + step],
+                ck.gl_mul_plain(ta[j:j + step], tb[j:j + step])))
+        del got
+        label = "lde_" if (width, log_n) == lde else ""
+        timing[f"gl_mul_leaf_{label}{width}x2^{log_n}"] = {
             "shape": list(shape),
             "ms": cuda_ms(lambda: ck.gl_mul(ta, tb), 2, 10),
-            "plain_ms": cuda_ms(lambda: ck.gl_mul_plain(ta, tb), 1, 3),
+            "plain_ms": sum(cuda_ms(lambda: ck.gl_mul_plain(
+                ta[j:j + step], tb[j:j + step]), 1, 3)
+                for j in range(0, width, step)),
+            "plain_column_blocks": -(-width // step),
             "bytes": 3 * 8 * ta.numel(), "ops": ta.numel() * OPS_MUL}
         del ta, tb
         torch.cuda.empty_cache()
-    states = 2 << max(log_n for _w, log_n in leaf_shapes)
+    states = 1 << lde[1]
     ts = rand_field((states, 12))
+    # the plain version takes seconds a call at 2^24 states: the call the
+    # kernel is held against is the one timed
+    plain = {}
+    plain_ms = cuda_ms(lambda: plain.setdefault(
+        "out", ck.poseidon2_permute_plain(ts)), 0, 1)
     errs["poseidon2_permute"] = max(errs["poseidon2_permute"], check_equal(
-        "poseidon2 leaf shape", ck.poseidon2_permute(ts),
-        ck.poseidon2_permute_plain(ts)))
+        "poseidon2 leaf shape", ck.poseidon2_permute(ts), plain.pop("out")))
     timing["poseidon2_permute_leaf"] = {
         "shape": [states, 12],
         "ms": cuda_ms(lambda: ck.poseidon2_permute(ts), 2, 10),
-        "plain_ms": cuda_ms(lambda: ck.poseidon2_permute_plain(ts), 1, 2),
+        "plain_ms": plain_ms,
         "bytes": 2 * 8 * 12 * states,
         "ops": states * (P2_MULS * OPS_MUL + P2_ADDS * OPS_ADD)}
     del ts
@@ -3468,6 +3705,14 @@ def main(argv=None) -> int:
                 raise SystemExit(f"sorters: {name}: expected one instance, "
                                  f"got {len(insts)}")
             inst = insts[0]
+            if ctype == 4:
+                # the log demuxer's setup (9,894 x 2^16, the largest) is
+                # made, and its VK compared, under its leaf in `tower13`
+                per_type[name] = {"circuit_type": ctype, "items": int(
+                    getattr(inst, "num_items", 0)),
+                    "artifacts_s": round(art_s, 3), "proved": False,
+                    "vk_equal_in": "tower13"}
+                continue
             (sd, geo), setup_s = timed(setup_of)
             vks = {ctype: sd.vk}
             if ctype == 11:  # the L1-messages sorter shares the gate set
@@ -3481,9 +3726,9 @@ def main(argv=None) -> int:
                                          f"type {t} differs from "
                                          f"setup/setup/base_layer/vk_{t}.json")
             # decomposed and its VK compared only: phase `tower13` proves
-            # the RAM permutation and the events and storage sorters (8, 11,
-            # 9) over the whole block, phase `block` the log demuxer (4), at
-            # the same geometry and VK
+            # the RAM permutation, the events and storage sorters and the log
+            # demuxer (8, 11, 9, 4) over the whole block, at the same
+            # geometry and VK
             per_type[name] = {
                 "circuit_type": ctype, "log_n": sd.ir.log_n,
                 "width": sd.ir.num_witness, "vk_equal": sorted(vks),
@@ -3871,18 +4116,43 @@ def main(argv=None) -> int:
         tower_phases(args, dev, phase, rand_field, check_equal, cuda_ms,
                      errs)
 
-    # -- 24-29. the CLI, the AIR STARK engine, the gadgets, the reference ----
-    # dialect of the main path's proof
+    # -- 17-19b. the golden towers, in two processes of their own beside ----
+    # the phases up to the mesh's (they time nothing, and those time no
+    # kernel of the kernels line)
+    ly._SETUP_CACHE.clear()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        launches_cli_golden, launches_cli = cli_phases(args, phase, tmp)
-    launches_stark = stark_phases(dev, phase)
-    gadgets_golden_phase(dev, phase)
-    ref_serde_phase(dev, phase, ir, setup, main_proof, cfg)
+    with _worker_allocator():
+        golden_pool = multiprocessing.get_context("spawn").Pool(
+            len(BACKGROUND_GOLDENS))
+    try:
+        background = {name: golden_pool.apply_async(_background_golden,
+                                                    (name,))
+                      for name in BACKGROUND_GOLDENS}
 
-    # -- 29-31. proving across cards: the sharded prove, the distributed NTT
-    launches_mesh = mesh_phases(args, dev, phase, ir, setup.vk(), cfg,
-                                main_proof)
+        # -- 24-29. the CLI, the AIR STARK engine, the gadgets, the ---------
+        # reference dialect of the main path's proof
+        with tempfile.TemporaryDirectory() as tmp:
+            launches_cli_golden, launches_cli = cli_phases(args, phase, tmp)
+        launches_stark = stark_phases(dev, phase)
+        gadgets_golden_phase(dev, phase)
+        ref_serde_phase(dev, phase, ir, setup, main_proof, cfg)
+
+        # -- 29-31. proving across cards: the sharded prove, the -----------
+        # distributed NTT
+        launches_mesh = mesh_phases(args, dev, phase, ir, setup.vk(), cfg,
+                                    main_proof)
+        for name, job in background.items():
+            recs, out, stopped = job.get()
+            for rec in recs:
+                phase(rec.pop("phase"), background=True, **rec)
+            if stopped is not None:
+                raise SystemExit(stopped)
+            if name == "golden_tower":
+                tower_paths["fw_golden"] = out
+        golden_pool.close()
+    finally:
+        golden_pool.terminate()
+        golden_pool.join()
     new_paths = {"cli_golden": launches_cli_golden, "cli": launches_cli,
                  "stark": launches_stark, "mesh": launches_mesh}
 

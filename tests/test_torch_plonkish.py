@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from zkevm_harness_tpu.circuits import flagship as jfl
 from zkevm_harness_tpu.prover import plonkish as jpk
@@ -210,3 +211,110 @@ def test_a_second_circuit_without_lookups_proves_and_verifies():
     cols[2, 5] = (int(cols[2, 5]) + 1) % P
     wrong = tpk.prove(ir, setup, tgl.from_u64(cols, "cpu"), cfg, device="cpu")
     assert tpk.verify(ir, setup.vk(), wrong, cfg, device="cpu") is False
+
+
+def _product_circuit():
+    """Three columns, w0 * w1 = w2 on every row, public inputs on rows 1-3
+    of two columns: the quotient's public-input terms over several rows."""
+    def gates(alg, w, w_next, c):
+        return [alg.mul(c[0], alg.sub(alg.mul(w[0], w[1]), w[2]))]
+
+    ir = tpk.stratify(tpk.PlonkishIR(
+        log_n=4, num_witness=3, num_const=1, gate_degree=3,
+        num_gate_constraints=1, eval_gates=gates, copy_chunk=2,
+        public_input_cells=((2, 1), (0, 2), (2, 3), (1, 3))))
+    n = 16
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, P, size=n, dtype=np.uint64)
+    b = rng.integers(0, P, size=n, dtype=np.uint64)
+    cols = np.stack([a, b, np.array([int(x) * int(y) % P for x, y in zip(a, b)],
+                                    dtype=np.uint64)])
+    cfg = tpk.PlonkishConfig(rate=2, cap_size=2, num_queries=4,
+                             final_fri_size=4)
+    setup = tpk.build_setup(ir, np.ones((1, n), dtype=object),
+                            tpk.CopyWiring.identity(), cfg, device="cpu")
+    return ir, setup, tgl.from_u64(cols, "cpu"), cfg
+
+
+def _builder_circuit():
+    """`tests/test_torch_builder.py`'s random program (every op kind,
+    Poseidon2 tiles, public outputs) at 120 steps, finalized and
+    filled."""
+    from tests.test_torch_builder import random_program
+    from zkevm_harness_tpu_torch.circuits import builder as tbd
+    b, asg = random_program(tbd, steps=120)
+    built = b.finalize()
+    cfg = tpk.PlonkishConfig(rate=2, cap_size=4, num_queries=4,
+                             final_fri_size=8)
+    return (built.ir, built.setup(cfg, device="cpu"),
+            b.fill_witness(asg, device="cpu"), cfg)
+
+
+@pytest.mark.parametrize("circuit", ["flagship", "product", "builder"])
+def test_byte_bounded_blocks_give_the_one_block_proof(monkeypatch, circuit):
+    """The prover's blocked passes (the quotient's gate, copy and public-
+    input terms, stage 2's copy columns, DEEP, the streamed LDEs) and the
+    quotient's gate parts take their natural blocks on short domains and
+    hold `_BLOCK_BYTES` beyond `_BLOCKED_ROWS`. With every domain counted
+    long and a budget of one row a block, so that every sum and every gate
+    part runs over many blocks (a block holds one column of n rows), the
+    proof is the one of the natural blocks, every row at once (field
+    addition is exact, a constraint reads its row and the next): for the
+    flagship, the golden bytes."""
+    if circuit == "flagship":
+        ir = tfl.flagship_ir(log_n=6, width=8)
+        cfg = TCFG
+        setup = tfl.flagship_setup(ir, cfg, device="cpu")
+        witness = tfl.flagship_witness(ir, seed=42, device="cpu")
+    elif circuit == "builder":
+        ir, setup, witness, cfg = _builder_circuit()
+    else:
+        ir, setup, witness, cfg = _product_circuit()
+    proofs = []
+    for blocked_rows, budget in ((1 << 40, 1 << 29), (1, 8 << ir.log_n)):
+        monkeypatch.setattr(tpk, "_BLOCKED_ROWS", blocked_rows)
+        monkeypatch.setattr(tpk, "_BLOCK_BYTES", budget)
+        proofs.append(tserde.proof_to_json(
+            tpk.prove(ir, setup, witness, cfg, device="cpu")))
+    assert tpk._block_rows(1 << ir.log_n, tpk._WSUM_CHUNK) == 1
+    assert proofs[0] == proofs[1]
+    if circuit == "flagship":
+        assert json.loads(json.dumps(proofs[1])) == \
+            _load("flagship_log6_proof.json")
+    else:
+        proof = convert.proof_from_json(proofs[1])
+        assert tpk.verify(ir, setup.vk(), proof, cfg, device="cpu",
+                          strict=True)
+
+
+@pytest.mark.parametrize("width", [21, 8, 1])
+def test_streamed_commitment_is_the_kept_one(monkeypatch, width):
+    """Without its LDE kept, a bundle's commitment is made a block of whole
+    rate-8 chunks of columns at a time (here 8 columns a block): the tree
+    of the LDE made at once, level for level."""
+    rng = np.random.default_rng(width)
+    coeffs = tgl.from_u64(rng.integers(0, P, size=(width, 16),
+                                       dtype=np.uint64), "cpu")
+    lde, kept = tpk._commit_cols_from_coeffs(coeffs, 64, 4)
+    monkeypatch.setattr(tpk, "_BLOCKED_ROWS", 1)
+    monkeypatch.setattr(tpk, "_BLOCK_BYTES", 8)
+    none, streamed = tpk._commit_cols_from_coeffs(coeffs, 64, 4,
+                                                  keep_lde=False)
+    assert none is None and lde.shape == (width, 64)
+    assert len(kept.levels) == len(streamed.levels)
+    for a, b in zip(kept.levels, streamed.levels):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("log_rows,natural,want", [
+    (16, 256, 256), (19, 256, 256), (20, 1024, 1024), (21, 1024, 32),
+    (22, 256, 16), (23, 256, 8), (24, 1024, 4), (23, 4, 4)])
+def test_blocks_are_natural_up_to_the_blocked_rows(log_rows, natural, want):
+    """A blocked pass keeps its natural block (256 values, 1,024 columns)
+    on rows of up to 2^20 points, the flagship's and the MainVM's, and
+    holds 512 MiB a block on longer ones, never more than its natural
+    block."""
+    assert tpk._BLOCKED_ROWS == 1 << 20 and tpk._BLOCK_BYTES == 1 << 29
+    assert tpk._block_rows(1 << log_rows, natural) == want
+    # a block of a longer domain's rows is sized by the bytes of its rows
+    assert tpk._block_rows(1 << 20, natural, 1 << 23) == min(natural, 64)

@@ -88,6 +88,25 @@ def test_hash_elements_matches_jax(n):
     assert np.array_equal(want, tgl.to_u64(got))
 
 
+@pytest.mark.parametrize("pieces", [(8, 8, 5), (16, 1), (24,)])
+def test_absorb_elements_in_whole_chunks_is_the_hash_at_once(pieces):
+    """The streamed commitment's sponge: elements absorbed in pieces of
+    whole rate-8 chunks (the last piece any length), each into the state
+    the one before left, give `hash_elements` of them all, which is the JAX
+    package's."""
+    n = sum(pieces)
+    vals = np.random.default_rng(n).integers(0, P, size=(5, n),
+                                             dtype=np.uint64)
+    elems = tgl.from_u64(vals, "cpu")
+    state, j = None, 0
+    for k in pieces:
+        state = tp2.absorb_elements(state, elems[:, j:j + k])
+        j += k
+    want = jgl.to_u64(jp2.hash_elements(jgl.from_u64(vals)))
+    assert np.array_equal(tgl.to_u64(state[:, :4]), want)
+    assert np.array_equal(tgl.to_u64(tp2.hash_elements(elems)), want)
+
+
 def test_hash_elements_of_a_transposed_view():
     """Merkle commits hash the rows of a column-major LDE through a
     transposed view; the digest must not depend on the memory layout."""

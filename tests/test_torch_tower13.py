@@ -1,6 +1,8 @@
 """The whole block's recursion tower over the base types beyond 7, 8 and
-10, held against the JAX package (integers, tolerance 0), and the JAX
-verifier's judgement of the card's production MainVM proof.
+10, and storage application's (10) tower at `leaf_arity=2`, held against
+the JAX package (integers, tolerance 0), and the JAX verifier's judgement
+of the card's production MainVM proof and production leaves of types 10
+and 4.
 
 The JAX side is the committed golden tower of the small whole block
 (`golden.WHOLE_GOLDEN` at `testing_geometry()`, `TOWER_GOLDEN_CONFIG`,
@@ -15,6 +17,16 @@ a CPU, and filling those and the 60-column leaves of 3 and 6 up to some
 the port on the CPU (every proof byte-equal; tens of minutes of the plain
 kernels) and the JAX verifier over the production MainVM proof (764 x
 2^16, 50 queries) that `chip_smoke.py --out` wrote on the card.
+
+Type 10's golden tower (`golden.TYPE10_GOLDEN`, `tools/gen_type10_golden.py`)
+is that of the JAX package's `tests/test_type10_tower.py`: one storage
+write, so a read and a write path at depth 4, one leaf of arity 2, its node
+and the scheduler. The port's leaf over the depth-4 path circuit has the
+JAX package's gates, circuit, witness and public inputs; the whole tower
+proved by the port on the CPU is byte-equal (`slow`). The card's
+production leaves of types 10 (2^22 x 48, two paths) and 4 (2^23 x 48),
+written by `chip_smoke.py --out`, are judged by the JAX verifier over the
+IR of their builder shape, made from the JAX builder's own pieces (`slow`).
 """
 
 import dataclasses
@@ -246,6 +258,159 @@ def test_jax_verifier_accepts_the_cards_main_vm_proof():
     assert jpk.verify(ir, vk, proof, cfg)
     bad = jserde.proof_from_json(data, jserde.default_registry())
     bad.public_inputs[16] = (int(bad.public_inputs[16]) + 1) % P
+    assert not jpk.verify(ir, vk, bad, cfg)
+    bad = jserde.proof_from_json(data, jserde.default_registry())
+    c0, c1 = bad.ood_witness[3]
+    bad.ood_witness[3] = ((int(c0) + 1) % P, c1)
+    assert not jpk.verify(ir, vk, bad, cfg)
+
+
+# -- storage application's tower at leaf_arity=2 ----------------------------
+
+@pytest.fixture(scope="module")
+def summary10():
+    return _load("tower10_summary.json")
+
+
+def test_type10_golden_is_the_jax_tests_tower(summary10):
+    """One leaf of arity 2 over the read and write paths, a node over it,
+    the scheduler over type 10's slot; the leaf's public inputs are the
+    base VK, its queue head's capacity lanes and the queue's tail, the
+    node's the leaf VK and those."""
+    assert summary10["golden"] == golden.TYPE10_GOLDEN == dict(
+        depth=golden.STORAGE_APP_DEPTH, leaf_arity=2)
+    assert summary10["spot_types"] == [10]
+    want = summary10["leaf"]
+    assert want["num_real"] == want["arity"] == 2 == len(
+        _load("tower10_base_proofs.json"))
+    leaf = convert.proof_from_json(_load("tower10_leaf_proof.json"))
+    pis = [int(v) for v in leaf.public_inputs]
+    assert pis == want["base_vk"] + want["queue_head"][8:12] + \
+        want["queue_tail"]
+    assert want["queue_tail"] == summary10["makers"]["10"]["queue"]["tail"]
+    node = convert.proof_from_json(_load("tower10_node_proof.json"))
+    assert [int(v) for v in node.public_inputs] == \
+        _load("tower10_leaf_vk.json") + pis
+    sched = convert.proof_from_json(_load("tower10_scheduler_proof.json"))
+    assert [int(v) for v in sched.public_inputs] == summary10["scheduler_pi"]
+
+
+def test_type10_leaf_equal_to_jax(summary10):
+    """The port's leaf of arity 2 over the depth-4 path circuit has the JAX
+    package's gates, permutations, shape, const columns and wiring, and
+    filled from the golden paths its witness and public inputs are the
+    JAX package's."""
+    want = summary10["leaf"]
+    b, lay, built = _leaf(10, want["arity"])
+    got = convert.builder_circuit_digests(b, built)
+    assert got == {k: want[k] for k in got}
+    chunk = [convert.proof_from_json(d)
+             for d in _load("tower10_base_proofs.json")]
+    W = b.fill_witness(tlc.leaf_assignments(
+        lay, want["base_vk"], chunk, queue_head=want["queue_head"]),
+        device="cpu")
+    assert convert.field_values_sha256(W) == want["witness_sha256"]
+    leaf = convert.proof_from_json(_load("tower10_leaf_proof.json"))
+    assert tlc.leaf_public_inputs(lay, want["base_vk"], chunk,
+                                  queue_head=want["queue_head"],
+                                  device="cpu") == \
+        [int(v) for v in leaf.public_inputs]
+
+
+@pytest.mark.slow
+def test_golden_type10_tower_on_the_cpu(summary10):
+    """The port's `harness.run_block(tower=True, leaf_arity=2)` of the type-10
+    block on the CPU's plain kernels: the two path proofs, the leaf, the
+    node and the scheduler, VKs and proofs, equal the JAX package's bytes,
+    and the flow's summary the golden one."""
+    from zkevm_harness_tpu_torch import harness
+    from zkevm_harness_tpu_torch.circuits import scheduler_circuit as tsc
+    from zkevm_harness_tpu_torch.circuits.types import testing_geometry
+    from zkevm_harness_tpu_torch.prover import layers as tly
+    from zkevm_harness_tpu_torch.prover import scheduler as tsch
+    from zkevm_harness_tpu_torch.utils import serde
+    from zkevm_harness_tpu_torch.vm import isa
+
+    def as_json(proof):
+        return convert.json_roundtrip(serde.proof_to_json(proof))
+
+    arity = golden.TYPE10_GOLDEN["leaf_arity"]
+    geo = dataclasses.replace(testing_geometry(),
+                              storage_tree_depth=golden.TYPE10_GOLDEN["depth"])
+    with tly.engine_override(CFG):
+        res = harness.run_block(golden.type10_block(isa), geometry=geo,
+                                prove_mode="spot", spot_types=(10,),
+                                tower=True, recursion_cfg=CFG,
+                                leaf_arity=arity, device="cpu")
+    src = res.source
+    assert [as_json(src.get_base_layer_proof(10, i)["proof"])
+            for i in range(2)] == _load("tower10_base_proofs.json")
+    for kind, rec in (("leaf", src.get_leaf_layer_proof(int(leaf_for(10)),
+                                                        0)),
+                      ("node", src.get_node_layer_proof(10, 0, 0)),
+                      ("scheduler", src.get_scheduler_proof())):
+        assert [int(v) for v in rec["vk"]] == _load(f"tower10_{kind}_vk.json")
+        assert as_json(rec["proof"]) == _load(f"tower10_{kind}_proof.json")
+    assert src.get_scheduler_proof()["scheduler_pi"] == \
+        summary10["scheduler_pi"]
+    dag = tsch.build_block_dag(
+        {t: m.queue for t, m in res.circuit_makers.items()},
+        {t: a.num_instances for t, a in res.artifacts.per_circuit.items()},
+        leaf_arity=arity)
+    got = convert.json_roundtrip(convert.block_proving_summary(
+        res, dag, tsc.scheduler_aux_values(res.scheduler_witness)))
+    for part in ("cycles", "dag", "records", "makers", "scheduler_witness"):
+        assert got[part] == summary10[part], part
+
+
+# -- the card's production leaves under the JAX verifier ---------------------
+
+PRODUCTION_LEAVES = {10: (22, 2), 4: (23, 1)}  # log rows, arity
+
+
+@pytest.mark.parametrize("ctype", sorted(PRODUCTION_LEAVES))
+def test_cards_production_leaf_is_the_production_shape(ctype):
+    s = _load(f"leaf{ctype}_production_summary.json")
+    proof = convert.proof_from_json(_load(f"leaf{ctype}_production_proof.json"))
+    log_n, arity = PRODUCTION_LEAVES[ctype]
+    assert (s["type"], s["index"], s["arity"], s["num_real"]) == \
+        (ctype, 0, arity, arity)
+    assert s["leaf_arity"] == golden.TOWER_LEAF_ARITY
+    assert s["config"] == golden.TOWER_CONFIG
+    assert (s["shape"]["log_n"], s["shape"]["num_witness"]) == (log_n, 48)
+    assert [int(v) for v in proof.public_inputs] == s["public_inputs"]
+    assert len(s["public_inputs"]) == 16 * 4 + 4 + 12
+    assert len(proof.ood_witness) == 48
+    assert len(proof.fri.query_positions) == 50
+    assert len(_load(f"leaf{ctype}_production_vk.json")) == 16 * 4
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("ctype", sorted(PRODUCTION_LEAVES))
+def test_jax_verifier_accepts_the_cards_production_leaf(ctype):
+    """The first production leaf of type 10 (two paths at depth 256) and of
+    type 4 (the log demuxer) proved on the card (`chip_smoke.py --out`,
+    phase `tower`), judged by the JAX package's `prover/plonkish.verify`
+    over the IR of the leaf's builder shape, made by the JAX builder's own
+    `_make_ir`: accepted, and refused with a public input or an OOD value
+    changed."""
+    from zkevm_harness_tpu.circuits import builder as jbd
+    from zkevm_harness_tpu.prover import plonkish as jpk
+    from zkevm_harness_tpu.utils import serde as jserde
+    s = _load(f"leaf{ctype}_production_summary.json")
+    shape = s["shape"]
+    b = jbd.CircuitBuilder(slots=shape["slots"])
+    b.tiles, b.p2_base = shape["tiles"], 3 * shape["slots"]
+    ir = b._make_ir(shape["log_n"], shape["num_witness"], shape["num_const"],
+                    tuple(tuple(c) for c in shape["public_input_cells"]),
+                    shape["copy_chunk"])
+    cfg = jpk.PlonkishConfig(**s["config"])
+    vk = _load(f"leaf{ctype}_production_vk.json")
+    data = _load(f"leaf{ctype}_production_proof.json")
+    proof = jserde.proof_from_json(data, jserde.default_registry())
+    assert jpk.verify(ir, vk, proof, cfg)
+    bad = jserde.proof_from_json(data, jserde.default_registry())
+    bad.public_inputs[0] = (int(bad.public_inputs[0]) + 1) % P
     assert not jpk.verify(ir, vk, bad, cfg)
     bad = jserde.proof_from_json(data, jserde.default_registry())
     c0, c1 = bad.ood_witness[3]

@@ -3,17 +3,20 @@ whole block's tower (`harness.run_block(tower=True)`) does for that type,
 each step's seconds and the card's peak memory printed as it ends, so a
 leaf too large for the card or the run shows where it stops.
 
-    python3 tools/leaf_probe.py TYPE[:ARITY] [TYPE[:ARITY] ...]
+    python3 tools/leaf_probe.py [--leaf-arity K] TYPE[:ARITY] [...]
 
 For each type: the whole block (`golden.WHOLE_BLOCK`) through
 `create_artifacts_from_tracer` at `GeometryConfig()`, the type's base
 setup and its first ARITY instances proved and verified (ARITY defaults to
-all of the block's instances, the leaf of `RECURSION_ARITY` = 32), then
-the leaf over those proofs at `golden.TOWER_CONFIG`: synthesis, finalize,
-setup, fill, prove, verify. One JSON line per step; a step that fails
-ends the run with its error. Needs one CUDA card.
+`--leaf-arity`, else to all of the block's instances, the leaf of
+`RECURSION_ARITY` = 32), then, as the tower does, the base setup let go of
+and the leaf over those proofs at `golden.TOWER_CONFIG`: synthesis,
+finalize, setup, fill, prove (with the running peak at the end of each
+prover stage, `plonkish.STAGE_PEAKS`), verify. One JSON line per step; a
+step that fails ends the run with its error. Needs one CUDA card.
 """
 
+import argparse
 import json
 import os
 import resource
@@ -36,6 +39,12 @@ from zkevm_harness_tpu_torch.witness import oracle  # noqa: E402
 
 
 def main(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--leaf-arity", type=int, default=None,
+                    help="base proofs a leaf verifies, where TYPE gives "
+                         "none (the tower's `leaf_arity`)")
+    ap.add_argument("types", nargs="+", metavar="TYPE[:ARITY]")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("leaf_probe: no CUDA device available", file=sys.stderr)
         return 1
@@ -49,11 +58,12 @@ def main(argv):
                                               initial_storage=pre,
                                               device=dev)
     payloads = oracle.block_payloads(art, geo)
-    for arg in argv:
+    for arg in args.types:
         ctype, _, arity = arg.partition(":")
         ctype = int(ctype)
         insts, ch, cap = payloads[ctype]
-        arity = int(arity) if arity else len(insts)
+        arity = int(arity) if arity else min(
+            args.leaf_arity or len(insts), len(insts))
         t = time.perf_counter()
 
         def step(name, **more):
@@ -80,21 +90,29 @@ def main(argv):
                 assert ly.verify_base_instance(ctype, inst, ch, cap,
                                                proofs[-1], device=dev)
             step("base_prove_verify", proofs=len(proofs))
-            b, lay = lc.synthesize_leaf(sd.ir, sd.config, arity, ctype)
+            # the leaf needs the base circuit's IR, config and VK only
+            base_ir, base_cfg, base_vk = sd.ir, sd.config, sd.vk
+            ly.drop_setup(sd)
+            del sd
+            torch.cuda.empty_cache()
+            step("base_setup_dropped",
+                 memory_allocated=torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()  # the leaf's peaks from here
+            b, lay = lc.synthesize_leaf(base_ir, base_cfg, arity, ctype)
             step("synthesis", gates=b.num_gates,
                  permutations=len(b.perms))
             built = b.finalize()
             step("finalize", shape=[built.ir.log_n, built.ir.num_witness])
             setup = built.setup(cfg, device=dev)
             step("setup")
-            W = b.fill_witness(lc.leaf_assignments(lay, sd.vk, proofs),
+            W = b.fill_witness(lc.leaf_assignments(lay, base_vk, proofs),
                                device=dev)
             step("fill")
             proof = pk.prove(built.ir, setup, W, cfg, device=dev)
-            step("prove")
+            step("prove", stage_peaks=dict(pk.STAGE_PEAKS))
             assert pk.verify(built.ir, setup.vk(), proof, cfg, device=dev)
             step("verify")
-        del sd, proofs, b, lay, built, setup, W, proof
+        del proofs, b, lay, built, setup, W, proof
         ly._SETUP_CACHE.clear()
         torch.cuda.empty_cache()
     return 0

@@ -29,7 +29,10 @@ The recursion tower (`harness.run_block(tower=True)`) of the small block of
 `tower_block` at `TOWER_GOLDEN_CONFIG` (RAM permutation 8 proved, its leaf,
 node and scheduler) is behind `test_artifacts/tower_golden_*.json`, and
 the dry block flow of `harness_block` behind
-`test_artifacts/harness_dry_summary.json` (`tools/gen_tower_golden.py`).
+`test_artifacts/harness_dry_summary.json` (`tools/gen_tower_golden.py`);
+storage application's tower at `leaf_arity=2` (`type10_block`,
+`TYPE10_GOLDEN`) behind `test_artifacts/tower10_*.json`
+(`tools/gen_type10_golden.py`).
 
 The fib-mul AIR of the STARK engine and the stand-alone gadget circuits
 (`gadget_circuits`), with fixed inputs, are behind
@@ -134,11 +137,30 @@ TOWER_CONFIG = dict(rate=2, cap_size=16, num_queries=50, final_fri_size=512)
 # The base types of the whole block's golden tower beyond the RAM
 # permutation (8) and ecrecover (7), which the golden tower and the card's
 # first tower covered, and storage application (10), whose six-path leaf
-# the JAX package proves on a CPU in hours: `harness.run_block(
+# the JAX package proves on a CPU in hours (its golden tower is
+# `TYPE10_GOLDEN`'s, two paths): `harness.run_block(
 # whole_block(WHOLE_GOLDEN), spot_types=TOWER13_GOLDEN_TYPES, tower=True)`
 # at `TOWER_GOLDEN_CONFIG` is behind `test_artifacts/tower13_*.json`
 # (`tools/gen_tower13_golden.py`).
 TOWER13_GOLDEN_TYPES = (1, 2, 3, 4, 5, 6, 9, 11, 12, 13)
+# Storage application's golden tower, that of the JAX package's own
+# `tests/test_type10_tower.py`: `type10_block` (one storage write, so a
+# read and a write path) at `testing_geometry()` with the storage tree cut
+# to `depth`, one leaf of `leaf_arity` paths, its node and the scheduler,
+# behind `test_artifacts/tower10_*.json` (`tools/gen_type10_golden.py`).
+TYPE10_GOLDEN = dict(depth=STORAGE_APP_DEPTH, leaf_arity=2)
+# The leaf arity of the whole block's tower on the card: type 10's 18 paths
+# as 9 leaves of 2 and a node over them, type 3's 4 instances as 2 leaves
+# and a node, the other types' single instance as it was.
+TOWER_LEAF_ARITY = 2
+
+
+def type10_block(isa) -> List:
+    """A heap write and read and one storage write: the block of storage
+    application's golden tower."""
+    I = isa.imm
+    return [isa.HeapWrite(I(0), I(5)), isa.HeapRead(I(0), 1),
+            isa.StorageWrite(I(1), I(7)), isa.Ret()]
 
 
 def tower_block(isa) -> List:

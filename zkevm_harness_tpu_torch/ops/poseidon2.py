@@ -41,9 +41,20 @@ def hash_elements(elems: GF) -> GF:
 
     Overwrite-mode absorption in rate-8 chunks, zero padding; the digest is
     lanes 0..3 of the final state."""
+    return absorb_elements(None, elems)[..., :CAPACITY]
+
+
+def absorb_elements(state, elems: GF) -> GF:
+    """The sponge of `hash_elements` carried on: (..., n) elements absorbed
+    in rate-8 chunks into `state` (None: the zero state), the last chunk
+    zero-padded; returns the state. Elements given in pieces of whole
+    chunks, each absorbed into the state the one before left, hash as if
+    given at once."""
     batch = elems.shape[:-1]
     n = elems.shape[-1]
-    state = torch.zeros(batch + (T,), dtype=torch.int64, device=elems.device)
+    if state is None:
+        state = torch.zeros(batch + (T,), dtype=torch.int64,
+                            device=elems.device)
     for start in range(0, n, RATE):
         chunk = elems[..., start:start + RATE]
         short = RATE - chunk.shape[-1]
@@ -52,7 +63,7 @@ def hash_elements(elems: GF) -> GF:
                 batch + (short,), dtype=torch.int64, device=elems.device)],
                 dim=-1)
         state = permute(_overwrite(state, chunk, 0))
-    return state[..., :CAPACITY]
+    return state
 
 
 def full_width_absorb(state: GF, encoding: GF) -> GF:

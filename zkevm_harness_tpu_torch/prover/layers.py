@@ -151,6 +151,8 @@ class SetupData:
 
 
 _SETUP_CACHE: Dict[tuple, SetupData] = {}
+# Set while `base_ir_for_type` runs: `_cached_setup` makes the IR alone
+_IR_ONLY = False
 
 
 def main_vm_geometry_for_capacity(capacity: int,
@@ -206,6 +208,8 @@ def _cached_setup(key: tuple, make_ir, make_setup, circuit_type: int,
     """The cached SetupData of `key` (+ device and engine config), built by
     `make_setup(ir, cfg, device)` at its first use; records the VK in
     `source` even when the setup was cached."""
+    if _IR_ONLY:
+        return SetupData(ir=make_ir(), setup=None, vk=None, config=None)
     key = key + (str(device),) + _cfg_key()
     if key not in _SETUP_CACHE:
         ir = make_ir()
@@ -217,6 +221,15 @@ def _cached_setup(key: tuple, make_ir, make_setup, circuit_type: int,
     if source is not None:
         source.set_base_layer_vk(sd.vk, int(circuit_type))
     return sd
+
+
+def drop_setup(sd: SetupData) -> None:
+    """Take `sd` out of the setup cache (alone, or with the program it is
+    cached beside), so that its device tensors go once its last holder
+    lets go of it."""
+    for key in [k for k, v in _SETUP_CACHE.items() if v is sd or (
+            isinstance(v, tuple) and len(v) and v[0] is sd)]:
+        del _SETUP_CACHE[key]
 
 
 def _create_setup(layer: str, registry, circuit_type: int,
@@ -1042,6 +1055,17 @@ def base_setup_for_type(ctype: int, geometry, device=None) -> SetupData:
     passes base VKs into create_leaf_witnesses,
     recursive_aggregation.rs:71-161)."""
     return BASE_CIRCUITS[ctype].setup(geometry, device)
+
+
+def base_ir_for_type(ctype: int, geometry) -> pk.PlonkishIR:
+    """The IR of `base_setup_for_type(ctype, geometry)` alone, made without
+    its setup and cached nowhere: the base circuit's shape, on the host."""
+    global _IR_ONLY
+    _IR_ONLY = True
+    try:
+        return BASE_CIRCUITS[ctype].setup(geometry, "cpu").ir
+    finally:
+        _IR_ONLY = False
 
 
 def prove_base_instance(ctype: int, inst_w, challenges, capacity: int,

@@ -41,6 +41,7 @@ import torch
 from ..ops import goldilocks as gl
 from ..ops import merkle as mk
 from ..ops import ntt as nt
+from ..ops import poseidon2 as p2
 from ..ops.goldilocks import GF, GF2, P
 from ..parallel import mesh as pm
 from ..utils import field_int as fi
@@ -51,18 +52,46 @@ from .transcript import Transcript
 
 K_COSET_GEN = gl.MULTIPLICATIVE_GENERATOR  # column coset reps k_j = 7^j
 
-# Values stacked into one multiply-and-reduce by the quotient's weighted sum
-# of gate constraints (a chunk of 2^16-row values is 128 MiB)
+# The prover's blocked passes: the quotient's weighted sum of gate
+# constraints, its gate parts, copy terms and public-input terms, stage 2's
+# copy columns, the DEEP dot products, and the LDE of a commitment, of DEEP
+# and of the openings made without a kept one. On rows of up to
+# `_BLOCKED_ROWS` values each pass takes its natural block: `_WSUM_CHUNK`
+# values, `_COPY_BLOCK_COLS` columns, a whole gate part or bundle. On longer
+# rows a block holds no more than `_BLOCK_BYTES`, so the working set of a
+# 2^22- or 2^23-row leaf stays that of a 2^20-row circuit, and a gate part
+# is split into blocks of rows, none shorter than `_BLOCKED_ROWS` (a part
+# makes a few launches per constraint for every block: the log demuxer's
+# 9,894 x 2^16 prove took 94.0 s in blocks of 4,096 rows against 20.2 s
+# whole, the same proof; NVIDIA H100 80GB HBM3, 700 W, one run). Field
+# addition is exact, so any blocking gives the same sums and proof.
 _WSUM_CHUNK = 256
-# Witness columns whose copy terms (and DEEP dot products) are formed at one
-# time: a block's terms are a few GiB at 2^16-2^17 rows
 _COPY_BLOCK_COLS = 1024
+_BLOCKED_ROWS = 1 << 20
+_BLOCK_BYTES = 1 << 29
+
+
+def _block_rows(row_len: int, natural: int, domain: int = None) -> int:
+    """Rows of `row_len` values that a blocked pass takes at a time: its
+    `natural` count where the rows' domain (`domain`, else `row_len`) has
+    no more than `_BLOCKED_ROWS` points, else no more than `_BLOCK_BYTES`
+    hold."""
+    if (row_len if domain is None else domain) <= _BLOCKED_ROWS:
+        return natural
+    return max(1, min(natural, _BLOCK_BYTES // (8 * int(row_len))))
+
 
 # Memory schedule of `prove` (the JAX package picks it by backend and has the
 # test hook FORCE_LEAN; the port has one device, so one switch): False
 # streams, recomputing a bundle's commitment LDE from its coefficients where
 # DEEP and the openings need it; True keeps every LDE from its commit on.
 RETAIN_LDE = False
+
+# The last prove on a CUDA device: the device's running peak of allocated
+# bytes (`torch.cuda.max_memory_allocated`) at the end of each prover
+# stage, so the stage that set a task's peak reads off its first reaching
+# the final value.
+STAGE_PEAKS: Dict[str, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,19 +189,33 @@ class PlonkishProof:
 # Setup construction
 # ---------------------------------------------------------------------------
 
-def _commit_cols_from_coeffs(coeffs: GF, n_comm: int, cap_size: int):
+def _commit_cols_from_coeffs(coeffs: GF, n_comm: int, cap_size: int,
+                             keep_lde: bool = True):
     """(LDE, Merkle tree) of coefficient rows on the commitment domain (leaf
-    l hashes column values at LDE index l). The streamed schedule drops the
-    LDE at once; the retained one keeps it."""
-    lde = nt.lde_from_coeffs(coeffs, n_comm)
-    return lde, mk.commit(lde.t(), cap_size)
+    l hashes column values at LDE index l). The retained schedule keeps the
+    LDE. Without `keep_lde` (the streamed schedule, a setup) None stands
+    for it, and on rows longer than `_BLOCKED_ROWS` it is made and hashed a
+    block of columns at a time, `_block_rows` rounded to whole rate-8
+    chunks, which the leaf sponge absorbs in column order."""
+    if keep_lde or n_comm <= _BLOCKED_ROWS:
+        lde = nt.lde_from_coeffs(coeffs, n_comm)
+        tree = mk.commit(lde.t(), cap_size)
+        return (lde if keep_lde else None), tree
+    step = p2.RATE * max(1, _block_rows(n_comm, coeffs.shape[0]) // p2.RATE)
+    state = None
+    for j in range(0, max(1, coeffs.shape[0]), step):
+        lde = nt.lde_from_coeffs(coeffs[j:j + step], n_comm)
+        state = p2.absorb_elements(state, lde.t())
+        del lde
+    return None, mk.build_tree(state[..., :mk.DIGEST_WIDTH], cap_size)
 
 
-def _commit_cols_with_coeffs(cols: GF, rate: int, cap_size: int):
+def _commit_cols_with_coeffs(cols: GF, rate: int, cap_size: int,
+                             keep_lde: bool = True):
     """(coefficients, LDE, tree): the INTT runs once and feeds both."""
     coeffs = nt.intt(cols)
     lde, tree = _commit_cols_from_coeffs(coeffs, cols.shape[-1] * rate,
-                                         cap_size)
+                                         cap_size, keep_lde)
     return coeffs, lde, tree
 
 
@@ -220,8 +263,9 @@ def setup_from_columns(const_cols: GF, sigma_cols: GF, table_cols: GF,
     """Commit [const || sigma || tables] on the commitment domain."""
     all_cols = gl.concatenate([const_cols, sigma_cols, table_cols], axis=0)
     _coeffs, _lde, tree = _commit_cols_with_coeffs(all_cols, cfg.rate,
-                                                   cfg.cap_size)
-    del _coeffs, _lde
+                                                   cfg.cap_size,
+                                                   keep_lde=False)
+    del _coeffs, all_cols
     return PlonkishSetup(const_cols=const_cols, sigma_cols=sigma_cols,
                          table_cols=table_cols, table_np=table_np,
                          tree=tree, cap_np=gl.to_ints(tree.cap))
@@ -451,10 +495,10 @@ def _chunk_products(t: GF2, num_chunks: int, chunk: int) -> GF2:
 # Prove-phase functions
 # ---------------------------------------------------------------------------
 
-def _chunk_blocks(C: int, copy_chunk: int):
-    """(first, end) copy chunks of each block of `_COPY_BLOCK_COLS` columns:
-    the copy terms of a wide trace are formed one block at a time."""
-    step = max(1, _COPY_BLOCK_COLS // copy_chunk)
+def _chunk_blocks(C: int, copy_chunk: int, n: int):
+    """(first, end) copy chunks of each block of `_block_rows` columns of n
+    rows: the copy terms of a wide trace are formed one block at a time."""
+    step = max(1, _block_rows(n, _COPY_BLOCK_COLS) // copy_chunk)
     return [(c, min(C, c + step)) for c in range(0, C, step)]
 
 
@@ -481,7 +525,7 @@ def _stage2(witness: GF, sigma_cols: GF, beta: GF2, gamma: GF2, w_pows: GF,
     num_witness = witness.shape[0]
     C = len(_copy_chunks(num_witness, copy_chunk))
     parts = []
-    for c0, c1 in _chunk_blocks(C, copy_chunk):
+    for c0, c1 in _chunk_blocks(C, copy_chunk, witness.shape[-1]):
         # id_j = w_pows * k_j for the block's columns
         ids = gl.mul(w_pows[None, :], ks_vec[c0 * copy_chunk:
                                              min(c1 * copy_chunk,
@@ -705,16 +749,20 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
             need.update(pi_cols)
         return tuple(sorted(need))
 
-    def _weighted_sum(vals, apows, off, zh_inv):
-        """zh_inv * sum_i alpha^(off+i) * vals[i] for base-field vals.
+    def _weighted_sum(vals, apows, off, zh_inv, n):
+        """zh_inv * sum_i alpha^(off+i) * vals[i] for base-field vals on
+        (a block of rows of) a coset of n points.
 
-        Up to `_WSUM_CHUNK` values are stacked and multiplied by their alpha
-        powers in one launch per component, then summed by a log-depth tree:
-        a few launches per chunk where one value took four. Field addition
-        is exact, so the order of the sum does not change it."""
+        A block of values (`_block_rows`) is stacked and multiplied by
+        their alpha powers in one launch per component, then summed by a
+        log-depth tree: a few launches per block where one value took four.
+        Field addition is exact, so the order of the sum does not change
+        it."""
         c0 = c1 = None
-        for s in range(0, len(vals), _WSUM_CHUNK):
-            part = vals[s:s + _WSUM_CHUNK]
+        step = _block_rows(max((v.numel() for v in vals), default=1),
+                           _WSUM_CHUNK, n)
+        for s in range(0, len(vals), step):
+            part = vals[s:s + step]
             shape = torch.broadcast_shapes(*(v.shape for v in part))
             blk = torch.stack([v.expand(shape) for v in part])
             a = apows[off + s:off + s + len(part)]
@@ -728,18 +776,41 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
 
     # ---- constraint family bodies ---------------------------------------
     def f_gate(p, wit_ev, const_ev, zh_inv, apows, col_sel):
-        rolled = _roll_next(wit_ev)
-        w = [None] * nw
-        wn = [None] * nw
-        for k, cc in enumerate(col_sel):
-            w[cc] = wit_ev[k]
-            wn[cc] = rolled[k]
-        const_cols_l = ([const_ev[j] for j in range(ir.num_const)]
-                        if const_ev is not None else [])
-        gate_vals = part_fns[p](alg, w, wn, const_cols_l)
-        assert len(gate_vals) == part_counts[p], (len(gate_vals),
-                                                  part_counts[p])
-        return _weighted_sum(gate_vals, apows, part_offs[p], zh_inv)
+        """Gate part p over the coset, a block of rows at a time: whole on
+        a coset of up to `_BLOCKED_ROWS` points, else in as many blocks (a
+        power of two) as `_BLOCK_BYTES` takes to hold the witness values,
+        none shorter than `_BLOCKED_ROWS`, so the part's stacked
+        intermediates shrink with them. Each constraint reads its row and
+        the next (cyclically), so the blocks' values are the whole
+        coset's."""
+        n = wit_ev.shape[-1]
+        nb = min(max(1, n // _BLOCKED_ROWS),
+                 _ceil_pow2(-(-8 * wit_ev.numel() // _BLOCK_BYTES)))
+        rows = n // nb
+        out0, out1 = [], []
+        for r0 in range(0, n, rows):
+            r1 = r0 + rows
+            cur = wit_ev[:, r0:r1]
+            nxt = (_roll_next(wit_ev) if nb == 1 else
+                   wit_ev[:, r0 + 1:r1 + 1] if r1 < n else
+                   torch.cat([wit_ev[:, r0 + 1:], wit_ev[:, :1]], dim=-1))
+            w = [None] * nw
+            wn = [None] * nw
+            for k, cc in enumerate(col_sel):
+                w[cc] = cur[k]
+                wn[cc] = nxt[k]
+            const_cols_l = ([const_ev[j, r0:r1] for j in range(ir.num_const)]
+                            if const_ev is not None else [])
+            gate_vals = part_fns[p](alg, w, wn, const_cols_l)
+            assert len(gate_vals) == part_counts[p], (len(gate_vals),
+                                                      part_counts[p])
+            v = _weighted_sum(gate_vals, apows, part_offs[p], zh_inv, n)
+            del gate_vals, cur, nxt, w, wn
+            out0.append(v.c0)
+            out1.append(v.c1)
+        if nb == 1:
+            return GF2(out0[0], out1[0])
+        return GF2(torch.cat(out0, dim=-1), torch.cat(out1, dim=-1))
 
     def f_copy(wit_ev, s2_ev, sigma_ev, xs, zh_inv, ks_vec, apows, beta,
                gamma):
@@ -754,7 +825,7 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
         nxt_b = GF2(torch.cat([pps_b.c0, z_next.c0[None]]),
                     torch.cat([pps_b.c1, z_next.c1[None]]))
         comb = None
-        for c0, c1 in _chunk_blocks(C, ir.copy_chunk):
+        for c0, c1 in _chunk_blocks(C, ir.copy_chunk, n):
             ids_b = gl.mul(xs[None, :], ks_vec[c0 * ir.copy_chunk:
                                                min(c1 * ir.copy_chunk, nw),
                                                None])
@@ -822,31 +893,35 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
             comb = gl.ext_add(comb, gl.ext_mul(
                 apows[b_z + 1],
                 gl.ext_mul_base(s_ext, xm1_inv)))
-        # PI terms (w_col - pi) / (x - w^row): the denominators of the
-        # distinct rows inverted in one batch (row 0's point is 1), the
-        # terms and their alpha powers stacked up to _WSUM_CHUNK at a time
+        # PI terms (w_col - pi) / (x - w^row), a block of cells
+        # (`_block_rows`) at a time: the denominators of the block's
+        # distinct rows inverted in one batch (row 0's is 1 / (x - 1)), the
+        # terms and their alpha powers stacked
         cells = ir.public_input_cells
-        if cells:
-            rows = sorted({row for _col, row in cells} - {0})
-            pos = {0: 0, **{row: k + 1 for k, row in enumerate(rows)}}
+        step = _block_rows(n, _WSUM_CHUNK)
+        for s in range(0, len(cells), step):
+            part = cells[s:s + step]
+            k = len(part)
+            rows = sorted({row for _col, row in part} - {0})
+            pos = {0: 0, **{row: j + 1 for j, row in enumerate(rows)}}
             dens = [xm1_inv[None]]
             if rows:
                 pts = gl.from_int([pow(w_gen, row, P) for row in rows],
                                   xs.device).reshape(-1, 1)
                 dens.append(gl.inv(gl.sub(xs[None, :], pts)))
             den = torch.cat(dens)
-            for s in range(0, len(cells), _WSUM_CHUNK):
-                part = cells[s:s + _WSUM_CHUNK]
-                k = len(part)
-                w_pi = torch.stack([wit_cols[col] for col, _row in part])
-                idx = torch.tensor([pos[row] for _col, row in part],
-                                   device=den.device)
-                term = gl.mul(gl.sub(w_pi, pi_vals[s:s + k, None]),
-                              den.index_select(0, idx))
-                a = apows[pi_off + s:pi_off + s + k]
-                comb = gl.ext_add(comb, GF2(
-                    gl.sum_axis(gl.mul(term, a.c0[:, None]), axis=0),
-                    gl.sum_axis(gl.mul(term, a.c1[:, None]), axis=0)))
+            del dens
+            w_pi = torch.stack([wit_cols[col] for col, _row in part])
+            idx = torch.tensor([pos[row] for _col, row in part],
+                               device=den.device)
+            term = gl.mul(gl.sub(w_pi, pi_vals[s:s + k, None]),
+                          den.index_select(0, idx))
+            del w_pi, den
+            a = apows[pi_off + s:pi_off + s + k]
+            comb = gl.ext_add(comb, GF2(
+                gl.sum_axis(gl.mul(term, a.c0[:, None]), axis=0),
+                gl.sum_axis(gl.mul(term, a.c1[:, None]), axis=0)))
+            del term
         return comb
 
     def call(c, wit_coeffs, s2_coeffs, s3_coeffs, const_coeffs,
@@ -859,27 +934,25 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
         wcols = _role_wit_cols(role)
         col_sel = tuple(range(nw)) if wcols is None else wcols
 
+        # coset NTT of a coefficient bundle: scale by s_c^i, then NTT. Each
+        # bundle's values are made just before the family that reads them
+        # and let go of after it (the constants after the gates, sigma after
+        # the copy terms), so no more than the witness and one family's
+        # bundles are held at a time.
+        pw = gl.powers(s_c, n, device=device)
+
+        def coset_ntt(coeffs, wanted=True):
+            if coeffs is None or not wanted:
+                return None
+            return nt.ntt(gl.mul(coeffs, pw))
+
         with tracing.span("coset_ntts"):
-            # coset NTT of a coefficient bundle: scale by s_c^i, then NTT
-            pw = gl.powers(s_c, n, device=device)
-
-            def coset_ntt(coeffs, wanted=True):
-                if coeffs is None or not wanted:
-                    return None
-                return nt.ntt(gl.mul(coeffs, pw))
-
             wc = wit_coeffs if wcols is None else gl.take(
                 wit_coeffs, np.array(wcols, dtype=np.int64), axis=0)
             wit_ev = coset_ntt(wc) if len(col_sel) else None
             del wc
-            s2_ev = coset_ntt(s2_coeffs, copy_on or lkbp_on)
-            s3_ev = coset_ntt(s3_coeffs, lkbp_on and has_lk)
             const_ev = coset_ntt(const_coeffs,
                                  bool(act_parts) and ir.num_const > 0)
-            sigma_ev = coset_ntt(sigma_coeffs, copy_on)
-            table_ev = coset_ntt(table_coeffs,
-                                 lkbp_on and has_lk and n_tables > 0)
-            del pw
         zh_inv = gl.from_int(zh_inv_int, device)
         xs = gl.mul_scalar(u_pows, s_c)  # the coset's points s_c * w^i
         out: Dict[int, GF2] = {}
@@ -891,10 +964,21 @@ def _coset_fn_strat(ir: PlonkishIR, lde_eval: int):
             for p in act_parts:
                 add(part_D[p], f_gate(p, wit_ev, const_ev, zh_inv, apows,
                                       col_sel))
+        del const_ev
+        with tracing.span("coset_ntts"):
+            s2_ev = coset_ntt(s2_coeffs, copy_on or lkbp_on)
+            sigma_ev = coset_ntt(sigma_coeffs, copy_on)
         with tracing.span("coset_rest"):
             if copy_on:
                 add(D_copy, f_copy(wit_ev, s2_ev, sigma_ev, xs, zh_inv,
                                    ks_vec, apows, beta, gamma))
+        del sigma_ev
+        with tracing.span("coset_ntts"):
+            s3_ev = coset_ntt(s3_coeffs, lkbp_on and has_lk)
+            table_ev = coset_ntt(table_coeffs,
+                                 lkbp_on and has_lk and n_tables > 0)
+        del pw
+        with tracing.span("coset_rest"):
             if lkbp_on:
                 add(D_lkbp, f_lkbp(wit_ev, s2_ev, s3_ev, table_ev, xs,
                                    zh_inv, apows, theta, beta_lk, pi_vals,
@@ -949,11 +1033,12 @@ def _deep_partial(deep: GF2, cols: GF, ood_z: GF2, ood_zw, gp_z: GF2, gp_zw,
         # sum_j g_j (col_j - ood_j) = (dot(g.c0, cols), dot(g.c1, cols))
         #                             + sum_j g_j * (-ood_j)
         # then one ext mul by the shared inverse denominator. The dots run
-        # over blocks of `_COPY_BLOCK_COLS` columns (exact, so any order).
+        # over blocks of `_block_rows` columns (exact, so any order).
         v0 = v1 = None
-        for j0 in range(0, cols.shape[0], _COPY_BLOCK_COLS):
-            blk = cols[j0:j0 + _COPY_BLOCK_COLS]
-            gb = g[j0:j0 + _COPY_BLOCK_COLS]
+        step = _block_rows(cols.shape[-1], _COPY_BLOCK_COLS)
+        for j0 in range(0, cols.shape[0], step):
+            blk = cols[j0:j0 + step]
+            gb = g[j0:j0 + step]
             d0 = gl.sum_axis(gl.mul(blk, gb.c0[:, None]), axis=0)
             d1 = gl.sum_axis(gl.mul(blk, gb.c1[:, None]), axis=0)
             v0 = d0 if v0 is None else gl.add(v0, d0)
@@ -1053,11 +1138,17 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     kept_ldes: Dict[str, GF] = {}
     retain = RETAIN_LDE and mesh is None
 
+    STAGE_PEAKS.clear()
+
+    @contextlib.contextmanager
     def stage(name: str):
-        """The stage's span; with a mesh, its collectives' label too."""
-        if mesh is None:
-            return tracing.span(name)
-        return _both(tracing.span(name), mesh.labelled(name))
+        """The stage's span (with a mesh, its collectives' label too), and
+        on a CUDA device its entry in `STAGE_PEAKS`."""
+        with (tracing.span(name) if mesh is None else
+              _both(tracing.span(name), mesh.labelled(name))):
+            yield
+        if device.type == "cuda":
+            STAGE_PEAKS[name] = torch.cuda.max_memory_allocated(device)
 
     def mesh_pieces(name: str, width: int):
         """(lo, hi, split) per column range of a bundle that the mesh
@@ -1089,14 +1180,29 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         if retain:
             kept_ldes[name] = lde
 
-    def bundle_lde(name: str, coeffs_b: GF) -> GF:
-        """The bundle's LDE: the retained one, else recomputed from its
-        coefficients (and then alive only as long as the caller holds it)."""
-        lde_b = kept_ldes.get(name)
-        if lde_b is None:
-            lde_b = nt.lde_from_coeffs(coeffs_b, n_comm)
-            keep(name, lde_b)
-        return lde_b
+    def joined(parts: List[GF]) -> GF:
+        return parts[0] if len(parts) == 1 else gl.concatenate(parts, axis=0)
+
+    def bundle_blocks(name: str, parts: List[GF]):
+        """(first column, LDE) pieces of the bundle whose coefficient rows
+        are `parts`, in column order: the retained LDE whole (made and kept
+        where none was), else a block of `_block_rows` columns at a time,
+        each released before the next is made (the whole bundle on up to
+        `_BLOCKED_ROWS` points)."""
+        if retain or n_comm <= _BLOCKED_ROWS:
+            lde_b = kept_ldes.get(name)
+            if lde_b is None:
+                lde_b = nt.lde_from_coeffs(joined(parts), n_comm)
+                keep(name, lde_b)
+            yield 0, lde_b
+            return
+        off = 0
+        step = _block_rows(n_comm, sum(b.shape[0] for b in parts))
+        for coeffs_b in parts:
+            for j in range(0, coeffs_b.shape[0], step):
+                yield off + j, nt.lde_from_coeffs(coeffs_b[j:j + step],
+                                                  n_comm)
+            off += coeffs_b.shape[0]
 
     def commit(cols: GF = None, coeffs: GF = None):
         """(coefficients, LDE, tree) of a bundle given by its columns or its
@@ -1107,7 +1213,8 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
             coeffs = nt.intt(cols)
         if backend is None:
             lde_b, tree_b = _commit_cols_from_coeffs(coeffs, n_comm,
-                                                     cfg.cap_size)
+                                                     cfg.cap_size,
+                                                     keep_lde=retain)
         else:
             lde_b = nt.lde_from_coeffs(coeffs, n_comm)
             tree_b = backend.commit_rows(lde_b, cfg.cap_size)
@@ -1284,9 +1391,10 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
     # -- stage 5: DEEP + FRI ----------------------------------------------
     with stage("deep"):
         gamma_deep, _gd_gf = _draw_ext()
-        setup_coeffs_all = gl.concatenate(
-            [b for b in (const_coeffs, sigma_coeffs, table_coeffs)
-             if b is not None], axis=0)
+        # the setup bundle's coefficient rows, its const, sigma and table
+        # columns in that order
+        setup_parts = [b for b in (const_coeffs, sigma_coeffs, table_coeffs)
+                       if b is not None]
         del const_coeffs, sigma_coeffs, table_coeffs
         ood_setup_dev = gl.ext_concat(
             [ev_dev[k] for k in ("const", "sigma", "table")
@@ -1313,18 +1421,18 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         # ranks sum at the end (`deep` takes the replicated ones)
         deep_sharded = (None if mesh is None
                         else gl.ext_zeros((n_comm,), device))
-        stream = [("witness", wit_coeffs, ev_dev["witness"],
+        stream = [("witness", [wit_coeffs], ev_dev["witness"],
                    ev_dev["witness_next"]),
-                  ("stage2", s2_coeffs, ev_dev["stage2"],
+                  ("stage2", [s2_coeffs], ev_dev["stage2"],
                    ev_dev["stage2_next"])]
         if has_lk:
-            stream.append(("stage3", s3_coeffs, ev_dev["stage3"],
+            stream.append(("stage3", [s3_coeffs], ev_dev["stage3"],
                            ev_dev["stage3_next"]))
-        stream += [("setup", setup_coeffs_all, ood_setup_dev, None),
-                   ("quotient", q_coeffs, ev_dev["quotient"], None)]
+        stream += [("setup", setup_parts, ood_setup_dev, None),
+                   ("quotient", [q_coeffs], ev_dev["quotient"], None)]
         gp_off = 0
-        for name, coeffs_b, ood_z, ood_zw in stream:
-            w_b = coeffs_b.shape[0]
+        for name, parts, ood_z, ood_zw in stream:
+            w_b = sum(b.shape[0] for b in parts)
             gp_z = gpows[gp_off:gp_off + w_b]
             gp_off += w_b
             if ood_zw is not None:
@@ -1333,11 +1441,17 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
             else:
                 gp_zw = None
             if mesh is None:
-                lde_b = bundle_lde(name, coeffs_b)
-                deep = _deep_partial(deep, lde_b, ood_z, ood_zw, gp_z, gp_zw,
-                                     inv_xz, inv_xzw)
-                del lde_b
+                # the bundle's terms a block of columns at a time
+                for lo, lde_b in bundle_blocks(name, parts):
+                    hi = lo + lde_b.shape[0]
+                    deep = _deep_partial(
+                        deep, lde_b, ood_z[lo:hi],
+                        None if ood_zw is None else ood_zw[lo:hi],
+                        gp_z[lo:hi], None if gp_zw is None else gp_zw[lo:hi],
+                        inv_xz, inv_xzw)
+                    del lde_b
                 continue
+            coeffs_b = joined(parts)
             for lo, hi, split in mesh_pieces(name, w_b):
                 lde_p = nt.lde_from_coeffs(coeffs_b[lo:hi], n_comm)
                 part = _deep_partial(
@@ -1378,20 +1492,20 @@ def _prove_impl(ir: PlonkishIR, setup: PlonkishSetup, witness: GF,
         openings: Dict[str, Dict[int, List[int]]] = {}
         paths: Dict[str, Dict[int, np.ndarray]] = {}
         # one bundle's LDE at a time for the query gathers
-        all_trees = [("witness", wit_coeffs, wit_tree),
-                     ("stage2", s2_coeffs, s2_tree),
-                     ("quotient", q_coeffs, q_tree),
-                     ("setup", setup_coeffs_all,
+        all_trees = [("witness", [wit_coeffs], wit_tree),
+                     ("stage2", [s2_coeffs], s2_tree),
+                     ("quotient", [q_coeffs], q_tree),
+                     ("setup", setup_parts,
                       setup.tree if backend is None else backend_setup[1])]
         if has_lk:
-            all_trees.insert(2, ("stage3", s3_coeffs, s3_tree))
-        for name, coeffs_b, tree in all_trees:
+            all_trees.insert(2, ("stage3", [s3_coeffs], s3_tree))
+        for name, parts, tree in all_trees:
             if mesh is None:
-                lde_cols = bundle_lde(name, coeffs_b)
-                vals = gl.to_u64(gl.take(lde_cols, idx_arr, axis=1).t())
-                del lde_cols
+                vals = gl.to_u64(joined(
+                    [gl.take(lde_b, idx_arr, axis=1)
+                     for _lo, lde_b in bundle_blocks(name, parts)]).t())
             else:
-                vals = gl.to_u64(mesh_query_values(name, coeffs_b,
+                vals = gl.to_u64(mesh_query_values(name, joined(parts),
                                                    idx_arr).t())
             if isinstance(tree, pm.ShardedTree):
                 pth = gl.to_u64(pm.open_sharded(tree, idx_arr, mesh))

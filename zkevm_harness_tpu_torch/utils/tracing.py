@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import resource
 import time
 from typing import Dict, List, Optional
 
@@ -89,7 +90,8 @@ def count(name: str, value: float = 1):
 class Stopwatch:
     """Host seconds of the steps of one task, each closed after a
     synchronise of a CUDA device (so queued device work is inside it); the
-    task's peak device memory and kernel launches on a CUDA device."""
+    process's peak host RSS; the task's peak device memory and kernel
+    launches on a CUDA device."""
 
     def __init__(self, device):
         self.cuda = device.type == "cuda"
@@ -109,7 +111,12 @@ class Stopwatch:
         self.t = now
 
     def done(self, **shape) -> Dict:
-        out = dict(shape, **self.out)
+        """The task's record: `shape`, its steps' seconds, its process and
+        that process's peak host RSS so far in bytes; on a CUDA device its
+        peak memory and launches."""
+        out = dict(shape, **self.out, pid=os.getpid(),
+                   host_max_rss=resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss * 1024)
         if self.cuda:
             out["max_memory_allocated"] = \
                 torch.cuda.max_memory_allocated(self.device)
